@@ -8,12 +8,21 @@ the recorded numbers). It imports neither JAX nor the JAX package
 failed check (the script then exits non-zero and prints no result):
 
   0. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
-     versions, the kernel build (seconds, ptxas registers and spills);
+     versions, the kernel build (seconds, ptxas registers and spills), and
+     about a second of streaming to bring the clocks up;
   1. the fused kernel against its plain PyTorch version on the main path's
      own pack (`CloudscDriver.prepare`: activity-sorted grouped columns,
      163,840 columns x 137 levels), fp64 (errsum/refsum < FP64_TOL per
      field) and fp32 (max-abs/max-ref <= 1e-5 per field), with the launch
      count of exactly those calls, and their times;
+  1a. K1's diagnostic bodies (`floor`, `init`) against their plain versions
+     on the same pack under the same bars, and the three bodies' times;
+  1b. the overlap probe (K2) against its plain version at the lab's
+     default size, every variant x {full, resident} x every w the lab
+     sweeps by default, max-abs/max-ref <= 1e-6 (bitwise expected), and its
+     times;
+  1c. the copy probe (K3) against x * 1.0000001, contig32...4096, strided
+     and tilemajor at the lab's default size, bitwise, and their GB/s;
   2. the main path in fp32 (`python -m cloudsc_tpu_torch 1 163840 128`'s
      driver calls): launch counts reset just before, read just after; the
      perf table; validation against the reference within test_golden's
@@ -24,7 +33,12 @@ failed check (the script then exits non-zero and prints no result):
      engine's reading of that field at this size (JAX_FP64_RELERR): a
      `!!!!` flag is accepted only where the reference engine carries one at
      least as large;
-  4. timing lines, each with the card's name and power limit.
+  4. timing lines, each with the card's name and power limit, printed
+     after phase 5;
+  5. the measurement lab's path, through its entry points
+     (`cloudsc_tpu_torch.bench.kernel_lab --modes full init floor`,
+     `.overlap_probe` with all five variants, `.dma_probe`): the launch
+     counts reset just before, read just after, every lab kernel launched.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -66,6 +80,9 @@ JAX_FP64_RELERR = {
 FLAG_BAR = 10.0 * 2.220446049250313e-16  # validate's 10*eps, fp64
 KERNEL_SOURCE = "cloudsc_tpu_torch/csrc/cloudsc_fused.cu"
 KERNEL_REPLACES = "cloudsc_tpu/kernels/pallas_cloudsc.py:977"
+PROBES_SOURCE = "cloudsc_tpu_torch/csrc/probes.cu"
+# K2's bar against its plain version, max-abs/max-ref
+OVERLAP_TOL = 1e-6
 # assumed HBM peak of one H100 SXM (NVIDIA data sheet), at 700 W: the share
 # printed is a modeled byte count over this figure, not a measured rate
 PEAK_GBS = 3350.0
@@ -84,10 +101,9 @@ def _relerr(got, want) -> float:
 def phase0_environment():
     import torch
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from cloudsc_tpu_torch.bench.timing import card as query_card
+
+    card = query_card()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     from cloudsc_tpu_torch.kernels import build
@@ -99,24 +115,52 @@ def phase0_environment():
     info = build.BUILD_INFO
     print(f"build: {info['seconds']:.2f} s (cached={info['cached']})")
     for name in ("f32", "f64"):
-        r = info["ptxas"][name]
+        r = info["ptxas"][f"fused_{name}"]
         print(f"ptxas {name}: {r['registers']} registers, "
               f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
               f"spill loads, {r['stack']} B stack")
+    for line in build.ptxas_summary(info["ptxas"]):
+        print(f"ptxas {line}")
+    # bring the clocks up before anything is timed (~1 s of streaming)
+    x = torch.ones(1 << 28, device="cuda")
+    for _ in range(1000):
+        x.mul_(1.0)
+    torch.cuda.synchronize()
     return card
 
 
 def _event_ms(fn, iterations):
+    """ms a call over `iterations` calls between CUDA events, after one
+    warm-up call: the caching allocator then holds the outputs' blocks, and
+    no cudaMalloc stalls the host inside the window (one did, up to 23 ms)."""
+    from cloudsc_tpu_torch.bench.timing import event_ms
+
+    return event_ms(fn, iterations, warmup=1)
+
+
+def _check_fields(tag, got, want):
+    """Kernel against plain version, field by field (CloudscOutputs): fp64
+    errsum/refsum < FP64_TOL, fp32 max-abs/max-ref <= 1e-5; returns the max
+    abs err."""
     import torch
 
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iterations):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iterations
+    max_abs = 0.0
+    for name in want._fields:
+        a = getattr(got, name).double()
+        b = getattr(want, name).double()
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"{tag} {name}: shape or non-finite")
+        diff = (a - b).abs()
+        max_abs = max(max_abs, float(diff.max()))
+        if getattr(got, name).dtype == torch.float64:
+            err = _relerr(a.cpu().numpy(), b.cpu().numpy())
+            ok = err < FP64_TOL
+        else:
+            err = float(diff.max()) / max(float(b.abs().max()), 1e-30)
+            ok = err <= 1e-5
+        if not ok:
+            raise RuntimeError(f"{tag} {name}: kernel vs plain {err:.3e}")
+    return max_abs
 
 
 def phase1_kernel_vs_plain(inp, params):
@@ -138,7 +182,7 @@ def phase1_kernel_vs_plain(inp, params):
         got = cc.assemble(cc.cloudsc_fused(p, c, consts), p, c)  # warm-up
         torch.cuda.synchronize()
         ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
-        calls = 1 + ITERATIONS
+        calls = 2 + ITERATIONS  # the check's call, the warm-up, the window
         if cc.LAUNCHES - before != calls:
             raise RuntimeError(f"{tag}: LAUNCHES rose by "
                                f"{cc.LAUNCHES - before}, expected {calls}")
@@ -146,22 +190,7 @@ def phase1_kernel_vs_plain(inp, params):
         if cc.LAUNCHES - before != calls:
             raise RuntimeError("the plain version launched the kernel")
         want = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
-        max_abs = 0.0
-        for name in want._fields:
-            a = getattr(got, name).double()
-            b = getattr(want, name).double()
-            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
-                raise RuntimeError(f"{tag} {name}: shape or non-finite")
-            diff = (a - b).abs()
-            max_abs = max(max_abs, float(diff.max()))
-            if dtype == torch.float64:
-                err = _relerr(a.cpu().numpy(), b.cpu().numpy())
-                ok = err < FP64_TOL
-            else:
-                err = float(diff.max()) / max(float(b.abs().max()), 1e-30)
-                ok = err <= 1e-5
-            if not ok:
-                raise RuntimeError(f"{tag} {name}: kernel vs plain {err:.3e}")
+        max_abs = _check_fields(tag, got, want)
         print(f"phase 1 {tag}: kernel == plain version within bar on all 21 "
               f"fields, max abs err {max_abs:.3e}, launches {calls}")
         # modeled bytes the step must move: the pack and col in, the three
@@ -174,6 +203,177 @@ def phase1_kernel_vs_plain(inp, params):
         del p, got, want
         torch.cuda.empty_cache()
     return results
+
+
+def phase1a_diagnostic_bodies(inp, params):
+    """K1's floor and init bodies against their plain versions on the
+    driver's pack, fp64 and fp32, and the three bodies' times; returns
+    {(mode, tag): (max_abs_err, ms, plain_ms)} and the modeled bytes a step
+    per tag."""
+    import torch
+
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    results, nbytes = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        driver = CloudscDriver(params, inp.ptsphy, dtype=dtype, device="cuda")
+        c, consts = driver.step.c, driver.step.consts
+        p = driver.prepare(inp).to("cuda")
+        for mode, plain, counter in (
+                ("floor", lambda: cc.cloudsc_floor_plain(p), "FLOOR_LAUNCHES"),
+                ("init", lambda: cc.cloudsc_init_plain(p, c), "INIT_LAUNCHES")):
+            before = getattr(cc, counter)
+            got = cc.assemble(cc.cloudsc_fused(p, c, consts, mode=mode), p, c)
+            torch.cuda.synchronize()
+            ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts, mode=mode),
+                           ITERATIONS)
+            if getattr(cc, counter) - before != 2 + ITERATIONS:
+                raise RuntimeError(f"{tag} {mode}: {counter} rose by "
+                                   f"{getattr(cc, counter) - before}")
+            plain_ms = _event_ms(plain, 1)
+            want = cc.assemble(plain(), p, c)
+            if getattr(cc, counter) - before != 2 + ITERATIONS:
+                raise RuntimeError(f"the plain {mode} body launched a kernel")
+            max_abs = _check_fields(f"{tag} {mode}", got, want)
+            if mode == "floor" and max_abs != 0.0:
+                raise RuntimeError(f"{tag} floor: not bitwise ({max_abs:.3e})")
+            results[(mode, tag)] = (max_abs, ms, plain_ms)
+            print(f"phase 1a {tag} {mode}: kernel == plain version within bar "
+                  f"on all 21 fields, max abs err {max_abs:.3e}, launches "
+                  f"{2 + ITERATIONS}")
+        full_ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
+        results[("full", tag)] = (None, full_ms, None)
+        nbytes[tag] = (p.pack.numel() + p.col.numel()
+                       + p.nlev * len(cc.OLEV_ROWS) * p.ncol
+                       + (p.nlev + 1) * len(cc.OHALF_ROWS) * p.ncol
+                       + p.ncol) * p.pack.element_size()
+        del p, got, want
+        torch.cuda.empty_cache()
+    return results, nbytes
+
+
+def phase1b_overlap_probe():
+    """K2 against its plain version at the lab's default size, every
+    variant x mode x w of the lab's default sweep (the instantiations the
+    lab path launches); then its times there. Returns (max abs err,
+    {(variant, mode, w): ms}, (ms, plain ms) of prod/full/w=8)."""
+    import torch
+
+    from cloudsc_tpu_torch.bench import overlap_probe as ob
+    from cloudsc_tpu_torch.kernels import cuda_probes as cp
+
+    a = ob.parse_args([])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (a.nk2, a.rr, a.ni * a.sb * cp.LANES)
+    x = torch.rand(shape, device="cuda", generator=gen)
+    # values over 12 decades, so the 1e-8/1e-9 terms show in fp32; block 0
+    # under 0.5 at even levels, so branchy takes both branches
+    x = x * 10.0 ** (-12 * torch.rand(shape, device="cuda", generator=gen))
+    x[:, 0, ::a.sb * cp.LANES] = 0.9
+    x[::2, :, :a.sb * cp.LANES] *= 0.4
+    col = torch.rand(cp.COL_SHAPE, device="cuda", generator=gen)
+    max_abs, n = 0.0, 0
+    for variant in cp.VARIANTS:
+        for mode in cp.OVERLAP_MODES:
+            for w in a.w:
+                before = cp.OVERLAP_LAUNCHES
+                got = cp.overlap_step(x, col, variant, mode, w, a.sb)
+                want = cp.overlap_plain(x, col, variant, mode, w, a.sb)
+                torch.cuda.synchronize()
+                if cp.OVERLAP_LAUNCHES - before != 1:
+                    raise RuntimeError("overlap_step did not count 1 launch")
+                for g, h in zip(got, want):
+                    if (g is None) != (h is None):
+                        raise RuntimeError(f"{variant} {mode}: outputs")
+                    if g is None:
+                        continue
+                    if g.shape != h.shape or not bool(torch.isfinite(g).all()):
+                        raise RuntimeError(f"{variant} {mode} w={w}: shape "
+                                           f"or non-finite")
+                    diff = float((g - h).abs().max())
+                    max_abs = max(max_abs, diff)
+                    if diff / max(float(h.abs().max()), 1e-30) > OVERLAP_TOL:
+                        raise RuntimeError(f"overlap {variant} {mode} w={w}: "
+                                           f"kernel vs plain {diff:.3e}")
+                n += 1
+                del got, want
+    print(f"phase 1b: overlap kernel == plain version in {n} cases "
+          f"(5 variants x 2 modes x w in {a.w}, {shape}), max abs err "
+          f"{max_abs:.3e}")
+    x = torch.ones(shape, device="cuda")
+    times = {}
+    for variant in cp.VARIANTS:
+        for mode in cp.OVERLAP_MODES:
+            for w in (0, 8):
+                times[(variant, mode, w)] = _event_ms(
+                    lambda: cp.overlap_step(x, col, variant, mode, w, a.sb),
+                    ITERATIONS)
+    plain_ms = _event_ms(
+        lambda: cp.overlap_plain(x, col, "prod", "full", 8, a.sb), 1)
+    del x
+    torch.cuda.empty_cache()
+    return max_abs, times, (times[("prod", "full", 8)], plain_ms)
+
+
+def phase1c_copy_probe():
+    """K3 against x * 1.0000001 at the lab's default size, bitwise; returns
+    {name: (ms, plain ms, bytes a pass, max abs err)}."""
+    import torch
+
+    from cloudsc_tpu_torch.bench import dma_probe as db
+    from cloudsc_tpu_torch.kernels import cuda_probes as cp
+
+    col = torch.rand(cp.COL_SHAPE, device="cuda")
+    results = {}
+    for probe in db.probes(db.parse_args([])):
+        x = torch.rand(probe.shape, device="cuda")
+        before = cp.COPY_LAUNCHES
+        got = cp.dma_copy(x, col, probe)
+        want = cp.dma_copy_plain(x, col)
+        if cp.COPY_LAUNCHES - before != 1:
+            raise RuntimeError("dma_copy did not count 1 launch")
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"copy {probe.name}: kernel != x * 1.0000001")
+        max_abs = max(float((g - h).abs().max()) for g, h in zip(got, want))
+        del got, want
+        ms = _event_ms(lambda: cp.dma_copy(x, col, probe), ITERATIONS)
+        plain_ms = _event_ms(lambda: cp.dma_copy_plain(x, col), ITERATIONS)
+        results[probe.name] = (ms, plain_ms, 2 * x.numel() * 4, max_abs)
+        del x
+        torch.cuda.empty_cache()
+    print(f"phase 1c: copy kernel == x * 1.0000001 bitwise for "
+          f"{', '.join(results)}")
+    return results
+
+
+def phase5_lab_path():
+    """The lab's entry points at their defaults (overlap with all five
+    variants); every lab kernel's count reset just before and read just
+    after. Returns the counts."""
+    from cloudsc_tpu_torch.bench import dma_probe, kernel_lab, overlap_probe
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.kernels import cuda_probes as cp
+
+    cc.LAUNCHES = cc.FLOOR_LAUNCHES = cc.INIT_LAUNCHES = 0
+    cp.OVERLAP_LAUNCHES = cp.COPY_LAUNCHES = 0
+    for mod, argv in (
+            (kernel_lab, ["--modes", "full", "init", "floor",
+                          "--precision", "fp32", "fp64"]),
+            (overlap_probe, ["--variants", *cp.VARIANTS]),
+            (dma_probe, [])):
+        if mod.main(argv) != 0:
+            raise RuntimeError(f"{mod.__name__} {argv} failed")
+    counts = {"cloudsc_fused": cc.LAUNCHES, "cloudsc_floor": cc.FLOOR_LAUNCHES,
+              "cloudsc_init": cc.INIT_LAUNCHES,
+              "overlap_probe": cp.OVERLAP_LAUNCHES,
+              "dma_copy": cp.COPY_LAUNCHES}
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise RuntimeError(f"lab path: no launch of {missing}")
+    print(f"phase 5 lab path: launches {counts}")
+    return counts
 
 
 def phase_main_path(inp, params, dtype, ref):
@@ -273,8 +473,12 @@ def main() -> int:
     ref = data.load_reference(data.default_reference_path(), NGPTOT)
 
     k = phase1_kernel_vs_plain(inp, params)
+    diag, diag_bytes = phase1a_diagnostic_bodies(inp, params)
+    k2_err, k2_times, (k2_ms, k2_plain_ms) = phase1b_overlap_probe()
+    k3 = phase1c_copy_probe()
     launches, t32, run32 = phase_main_path(inp, params, torch.float32, ref)
     _, t64, run64 = phase_main_path(inp, params, torch.float64, ref)
+    lab_counts = phase5_lab_path()
 
     for tag, t, run_s in (("fp32", t32, run32), ("fp64", t64, run64)):
         max_abs, ms, plain_ms, nbytes = k[tag]
@@ -291,13 +495,61 @@ def main() -> int:
               f"kernel busy {busy_s:.4f} s of driver.run {run_s:.3f} s "
               f"(host wall clock, no trace) = idle share "
               f"{1 - busy_s / run_s:.4f}")
+    for tag in ("fp32", "fp64"):
+        full, init, floor = (diag[(m, tag)][1] for m in ("full", "init",
+                                                         "floor"))
+        gbs = diag_bytes[tag] / (floor * 1e-3) / 1e9
+        print(f"timing K1 bodies {tag} [{card}]: full {full:.4f} ms, init "
+              f"{init:.4f} ms, floor {floor:.4f} ms a step (CUDA events over "
+              f"{ITERATIONS} launches, driver's pack); floor moves the modeled "
+              f"{diag_bytes[tag] / 1e9:.3f} GB at {gbs:.0f} GB/s = "
+              f"{gbs / PEAK_GBS:.3f} of an assumed {PEAK_GBS:.0f} GB/s peak; "
+              f"plain init {diag[('init', tag)][2]:.1f} ms, plain floor "
+              f"{diag[('floor', tag)][2]:.1f} ms (1 call)")
+    for variant in ("plain", "alias", "scratch", "prod", "branchy"):
+        t = {(m, w): k2_times[(variant, m, w)]
+             for m in ("full", "resident") for w in (0, 8)}
+        print(f"timing overlap {variant} [{card}]: S (full, w=0) "
+              f"{t[('full', 0)]:.4f} ms, C (resident, w=8) "
+              f"{t[('resident', 8)]:.4f} ms, T (full, w=8) "
+              f"{t[('full', 8)]:.4f} ms, resident w=0 "
+              f"{t[('resident', 0)]:.4f} ms (CUDA events over {ITERATIONS} "
+              f"launches at the lab's default size)")
+    print(f"timing overlap plain version prod/full/w=8 [{card}]: "
+          f"{k2_plain_ms:.1f} ms (1 call) against the kernel's {k2_ms:.4f} ms")
+    for name, (ms, plain_ms, nbytes, _) in k3.items():
+        print(f"timing copy {name} [{card}]: {ms:.4f} ms, "
+              f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s; plain x * 1.0000001 "
+              f"{plain_ms:.4f} ms, {nbytes / (plain_ms * 1e-3) / 1e9:.0f} GB/s "
+              f"(CUDA events over {ITERATIONS} launches)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     max_abs, ms, plain_ms, _ = k["fp32"]
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "cloudsc_fused", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    }]
+    for mode in ("floor", "init"):
+        max_abs, ms, plain_ms = diag[(mode, "fp32")]
+        entries.append({
+            "name": f"cloudsc_{mode}", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+            "launches": lab_counts[f"cloudsc_{mode}"],
+            "max_abs_err": max(max_abs, diag[(mode, "fp64")][0]),
+            "ms": ms, "plain_ms": plain_ms})
+    entries.append({
+        "name": "overlap_probe", "route": "cuda", "source": PROBES_SOURCE,
+        "replaces": "bench/overlap_probe.py:171",
+        "launches": lab_counts["overlap_probe"], "max_abs_err": k2_err,
+        "ms": k2_ms, "plain_ms": k2_plain_ms})
+    ms, plain_ms, _, _ = k3["strided"]
+    entries.append({
+        "name": "dma_copy", "route": "cuda", "source": PROBES_SOURCE,
+        "replaces": "bench/dma_probe.py:80",
+        "launches": lab_counts["dma_copy"],
+        "max_abs_err": max(r[3] for r in k3.values()),
+        "ms": ms, "plain_ms": plain_ms})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -25,6 +25,10 @@
 // first version is a simple, correct kernel: it is register-bound (one large
 // unrolled body per thread, spills recorded by the build), built with
 // -fmad=false so it agrees with its plain PyTorch version to a few ulps.
+//
+// Beside it, the TPU kernel's two diagnostic bodies (floor_kernel,
+// init_kernel; see below), which split the step's time into stream and
+// compute.
 #include <cuda_runtime.h>
 
 #include "cloudsc_scheme.cuh"
@@ -184,32 +188,132 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   o_prainfrac[j] = cr.prainfrac;
 }
 
+// -- the two diagnostic bodies of the TPU kernel (pallas_cloudsc.py:489-509,
+// `_mode` "floor" and "init"), for the measurement lab
+// (cloudsc_tpu_torch/bench/kernel_lab.py). They take the same pack and write
+// the same three buffers as fused_kernel, so they stream the step's exact
+// I/O: `floor` with degenerate compute (one add a level), `init` with the
+// section-1 compute only. On the TPU the BlockSpecs stream every row
+// whatever the body reads; here a load whose value goes unused would be
+// dropped, so each level's rows (and col) are read through a volatile
+// pointer: every input byte the step's model counts is loaded once. Every
+// output row of level k gets the level's value v (o_lev only for k < nlev);
+// o_prainfrac gets the value of the last level the loop visits, the
+// edge-replicated row nlev, as the TPU body leaves it.
 template <typename T>
+__device__ __forceinline__ void load_level(const T* pack, int k, size_t n,
+                                           int j, T (&row)[R_COUNT]) {
+  const volatile T* pk = pack + size_t(k) * R_COUNT * n + j;
+#pragma unroll
+  for (int r = 0; r < R_COUNT; ++r) row[r] = pk[r * n];
+}
+
+template <typename T>
+__device__ __forceinline__ void load_col(const T* col, size_t n, int j) {
+  const volatile T* c = col + j;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) (void)c[r * n];
+}
+
+template <typename T>
+__device__ __forceinline__ void write_level(T* o_lev, T* o_half, int k,
+                                            int nlev, size_t n, int j, T v) {
+  T* oh = o_half + size_t(k) * OH_COUNT * n + j;
+#pragma unroll
+  for (int r = 0; r < OH_COUNT; ++r) oh[r * n] = v;
+  if (k == nlev) return;
+  T* ol = o_lev + size_t(k) * OL_COUNT * n + j;
+#pragma unroll
+  for (int r = 0; r < OL_COUNT; ++r) ol[r * n] = v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+floor_kernel(const T* __restrict__ pack, const T* __restrict__ col,
+             const double* __restrict__ kd, T* __restrict__ o_lev,
+             T* __restrict__ o_half, T* __restrict__ o_prainfrac, int nlev,
+             int ncol, int nrows) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ncol) return;
+  const size_t n = size_t(ncol);
+  load_col(col, n, j);
+  T v = T(0);
+  for (int k = 0; k <= nlev; ++k) {
+    T row[R_COUNT];
+    load_level(pack, k, n, j, row);
+    v = row[R_ZTP1_IN] + row[R_ZQV_IN];
+    write_level(o_lev, o_half, k, nlev, n, j, v);
+  }
+  o_prainfrac[j] = v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+init_kernel(const T* __restrict__ pack, const T* __restrict__ col,
+            const double* __restrict__ kd, T* __restrict__ o_lev,
+            T* __restrict__ o_half, T* __restrict__ o_prainfrac, int nlev,
+            int ncol, int nrows) {
+  __shared__ T K[C_COUNT];
+  for (int i = threadIdx.x; i < C_COUNT; i += blockDim.x) K[i] = T(kd[i]);
+  __syncthreads();
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= ncol) return;
+  const size_t n = size_t(ncol);
+  load_col(col, n, j);
+  T v = T(0);
+  for (int k = 0; k <= nlev; ++k) {
+    T row[R_COUNT];
+    load_level(pack, k, n, j, row);
+    T zqx_in[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) zqx_in[m] = row[R_ZQX0_IN + m];
+    Init<T> in;
+    level_init(K, row[R_ZTP1_IN], row[R_ZQV_IN], row[R_ZA_IN], zqx_in,
+               row[R_PAP], in);
+    v = in.ztp1 + in.zqsmix + in.zfokoop + in.zli;
+    write_level(o_lev, o_half, k, nlev, n, j, v);
+  }
+  o_prainfrac[j] = v;
+}
+
+enum Body { FULL, FLOOR, INIT };
+
+template <typename T, Body B>
 int launch(const T* pack, const T* col, const double* consts, T* o_lev,
            T* o_half, T* o_prainfrac, int nlev, int ncol, int nrows,
            void* stream) {
   if (ncol <= 0) return 0;
   const int grid = (ncol + BLOCK - 1) / BLOCK;
-  fused_kernel<T><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      pack, col, consts, o_lev, o_half, o_prainfrac, nlev, ncol, nrows);
+  auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (B == FULL)
+    fused_kernel<T><<<grid, BLOCK, 0, s>>>(pack, col, consts, o_lev, o_half,
+                                           o_prainfrac, nlev, ncol, nrows);
+  else if constexpr (B == FLOOR)
+    floor_kernel<T><<<grid, BLOCK, 0, s>>>(pack, col, consts, o_lev, o_half,
+                                           o_prainfrac, nlev, ncol, nrows);
+  else
+    init_kernel<T><<<grid, BLOCK, 0, s>>>(pack, col, consts, o_lev, o_half,
+                                          o_prainfrac, nlev, ncol, nrows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cloudsc
 
-extern "C" int cloudsc_fused_f32(const float* pack, const float* col,
-                                 const double* consts, float* o_lev,
-                                 float* o_half, float* o_prainfrac, int nlev,
-                                 int ncol, int nrows, void* stream) {
-  return cloudsc::launch<float>(pack, col, consts, o_lev, o_half, o_prainfrac,
-                                nlev, ncol, nrows, stream);
-}
+// The C entry points, one per body and precision: cloudsc_{fused,floor,
+// init}_{f32,f64}(pack, col, consts, o_lev, o_half, o_prainfrac, nlev, ncol,
+// nrows, stream) -> cudaError_t of the launch.
+#define CLOUDSC_ENTRY(NAME, T, B)                                          \
+  extern "C" int NAME(const T* pack, const T* col, const double* consts,  \
+                      T* o_lev, T* o_half, T* o_prainfrac, int nlev,       \
+                      int ncol, int nrows, void* stream) {                 \
+    return cloudsc::launch<T, cloudsc::B>(pack, col, consts, o_lev,        \
+                                          o_half, o_prainfrac, nlev, ncol, \
+                                          nrows, stream);                  \
+  }
 
-extern "C" int cloudsc_fused_f64(const double* pack, const double* col,
-                                 const double* consts, double* o_lev,
-                                 double* o_half, double* o_prainfrac,
-                                 int nlev, int ncol, int nrows,
-                                 void* stream) {
-  return cloudsc::launch<double>(pack, col, consts, o_lev, o_half,
-                                 o_prainfrac, nlev, ncol, nrows, stream);
-}
+CLOUDSC_ENTRY(cloudsc_fused_f32, float, FULL)
+CLOUDSC_ENTRY(cloudsc_fused_f64, double, FULL)
+CLOUDSC_ENTRY(cloudsc_floor_f32, float, FLOOR)
+CLOUDSC_ENTRY(cloudsc_floor_f64, double, FLOOR)
+CLOUDSC_ENTRY(cloudsc_init_f32, float, INIT)
+CLOUDSC_ENTRY(cloudsc_init_f64, double, INIT)

@@ -2,11 +2,14 @@
 
 `csrc/*.cu` compile with `nvcc` at first use into one shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers: seconds to build,
-not minutes). The library goes to `build/cloudsc_tpu_torch/<hash>/` under the
-repository root, keyed by a hash of the sources and flags, so a rerun on the
-same checkout does not rebuild. Flags: sm_90a, -O3, C++17, -fmad=false (no
-multiply-add contraction, so the kernel agrees with its plain version to a
-few ulps) and no fast math. A failed build raises.
+not minutes). Each source compiles in its own `nvcc -c`, all started
+together, and one `nvcc -shared` links the objects. The library goes to
+`build/cloudsc_tpu_torch/<hash>/` under the repository root, keyed by a hash
+of the sources and flags, so a rerun on the same checkout does not rebuild.
+Flags: sm_90a, -O3, C++17, -fmad=false (no multiply-add contraction, so the
+kernels agree with their plain versions to a few ulps; the probes write
+their multiply-adds as explicit fmaf) and no fast math. A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -23,13 +26,25 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "cloudsc_tpu_torch"
-LIB_NAME = "libcloudsc_fused.so"
+LIB_NAME = "libcloudsc_kernels.so"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
+
+_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_STEP_ARGS = [_vp] * 6 + [_i] * 3 + [_vp]
+# every C entry point of the library and its argument types (pointers and
+# the stream as void*, 64-bit offsets as long long); each returns the
+# launch's cudaError_t as an int
+ENTRY_POINTS = {
+    **{f"cloudsc_{body}_{t}": _STEP_ARGS
+       for body in ("fused", "floor", "init") for t in ("f32", "f64")},
+    "overlap_probe": [_vp] * 5 + [_i] * 7 + [_vp],
+    "copy_probe": [_vp] * 4 + [_i, _i, _ll, _i, _ll, _ll, _i, _vp],
+}
 
 _lib = None
 # what the last build (or cache hit) reported: seconds, ptxas lines,
-# per-instantiation registers/spills
+# per-kernel registers/spills
 BUILD_INFO: dict = {}
 
 
@@ -53,24 +68,64 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def parse_ptxas(text: str) -> dict:
-    """-Xptxas -v output -> {instantiation: {registers, spill_stores,
-    spill_loads, stack}} keyed 'f32' / 'f64' for the fused kernel."""
-    out = {}
+_TYPES = {"f": "f32", "d": "f64"}
+
+
+def kernel_key(mangled: str) -> str:
+    """A mangled kernel name -> its key: the innermost name without
+    `_kernel`, then its template arguments, a float type as f32/f64 and an
+    integer as its value: `fused_kernel<float>` -> 'fused_f32',
+    `floor_kernel<double>` -> 'floor_f64', `overlap_kernel<3, 8>` ->
+    'overlap_3_8', `copy_kernel` -> 'copy'. Other names stay as they are."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    pos = 3 if mangled.startswith("_ZN") else 2
     name = None
+    while pos < len(mangled) and mangled[pos].isdigit():
+        m = re.match(r"\d+", mangled[pos:])
+        n = int(m.group())
+        pos += len(m.group())
+        name = mangled[pos:pos + n]
+        pos += n
+    if name is None:
+        return mangled
+    parts = [name.removesuffix("_kernel")]
+    if mangled.startswith("I", pos):
+        args = mangled[pos + 1:]
+        for tok in re.finditer(r"Li(-?\d+)E|([fd])(?=[ELI])", args):
+            parts.append(tok.group(1) if tok.group(1) is not None
+                         else _TYPES[tok.group(2)])
+            if args[tok.end():].startswith("EE"):
+                break
+    return "_".join(parts)
+
+
+def parse_ptxas(text: str) -> dict:
+    """-Xptxas -v output -> {kernel_key: {registers, spill_stores,
+    spill_loads, stack}} (`kernel_key`: 'fused_f32', 'floor_f64', ...).
+    The stack and spills are the entry function's own: the properties of
+    the device functions it calls (`__internal_accurate_pow`, ...) follow
+    it in the log and are not its."""
+    out = {}
+    name = mangled = None
+    own = False
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             mangled = m.group(1)
-            name = ("f32" if "IfE" in mangled else
-                    "f64" if "IdE" in mangled else mangled)
+            name = kernel_key(mangled)
             out[name] = {}
+            own = True
             continue
         if name is None:
             continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            own = mangled.startswith(m.group(1))
+            continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        if m:
+        if m and own:
             out[name].update(stack=int(m.group(1)),
                              spill_stores=int(m.group(2)),
                              spill_loads=int(m.group(3)))
@@ -78,6 +133,25 @@ def parse_ptxas(text: str) -> dict:
         if m:
             out[name]["registers"] = int(m.group(1))
     return out
+
+
+def ptxas_summary(info: dict) -> list[str]:
+    """One line per kernel; the instantiations of a template over integers
+    (the overlap probe's variant and w) as one line with their range."""
+    groups: dict = {}
+    for key, r in info.items():
+        base = re.sub(r"(_-?\d+)+$", "", key)
+        groups.setdefault(base, []).append(r)
+    lines = []
+    for base, rs in groups.items():
+        regs = [r.get("registers", 0) for r in rs]
+        spill = max(r.get("spill_stores", 0) for r in rs)
+        stack = max(r.get("stack", 0) for r in rs)
+        span = f"{regs[0]}" if len(rs) == 1 else \
+            f"{min(regs)}-{max(regs)} ({len(rs)} instantiations)"
+        lines.append(f"{base}: {span} registers, {spill} B spill stores, "
+                     f"{stack} B stack")
+    return lines
 
 
 def build(verbose: bool = True) -> Path:
@@ -92,15 +166,35 @@ def build(verbose: bool = True) -> Path:
                           ptxas=parse_ptxas(text))
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs, procs = [], []
+    for src in srcs:
+        obj = out_dir / f".{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    text, failed = "", []
+    for src, proc in zip(srcs, procs):
+        log = proc.communicate()[0]
+        text += log
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{log}")
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n"
+                          f"{link.stdout}{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
     log_path.write_text(text)
     os.replace(tmp, lib_path)
     info = parse_ptxas(text)
@@ -108,11 +202,8 @@ def build(verbose: bool = True) -> Path:
                       ptxas=info)
     if verbose:
         print(f" cloudsc_tpu_torch: built {lib_path.name} in {seconds:.1f} s")
-        for name, r in info.items():
-            print(f"   {name}: {r.get('registers')} registers, "
-                  f"{r.get('spill_stores')} B spill stores, "
-                  f"{r.get('spill_loads')} B spill loads, "
-                  f"{r.get('stack')} B stack")
+        for line in ptxas_summary(info):
+            print(f"   {line}")
     return lib_path
 
 
@@ -123,10 +214,9 @@ def load_library():
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("cloudsc_fused_f32", "cloudsc_fused_f64"):
+    for name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, vp]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     _lib = lib
     return _lib

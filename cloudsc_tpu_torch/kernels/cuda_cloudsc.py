@@ -17,7 +17,11 @@ streamed (`fn`) — so no consumer infers it from a row count.
 `cloudsc_fused` launches the kernel for a CUDA pack (or raises) and runs
 `cloudsc_fused_plain` — a level loop over `physics.scheme` on `(ncol,)` rows
 that mirrors the Pallas `_kernel` / `_sub_level` / `_write_level_rows` — for a
-CPU pack. `LAUNCHES` counts kernel launches.
+CPU pack. Its `mode` also selects the TPU kernel's two diagnostic bodies
+(`floor`, `init`: the same I/O with degenerate or section-1 compute, for the
+measurement lab), with plain versions `cloudsc_floor_plain` /
+`cloudsc_init_plain`. `LAUNCHES`, `FLOOR_LAUNCHES` and `INIT_LAUNCHES` count
+the launches of the three bodies.
 """
 
 from __future__ import annotations
@@ -31,8 +35,13 @@ from ..physics import satfold, scheme
 from ..physics.cloudsc import CloudscOutputs
 from ..physics.scheme import IL, II, IR, IS, NCLV
 
-# kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset them), per body
 LAUNCHES = 0
+FLOOR_LAUNCHES = 0
+INIT_LAUNCHES = 0
+# mode -> the body's name in the C entry points (cloudsc_<body>_<f32|f64>)
+_BODIES = {"full": "fused", "floor": "floor", "init": "init"}
+MODES = tuple(_BODIES)
 
 # folded per-level rows (pallas_cloudsc._PACK_ROWS_F), then the streamed ZDQS
 # row of the fn contract; rows 0-2 are the ones also read at level k+1
@@ -194,21 +203,25 @@ def folded_rows(get, ptsphy, c=None, fn: bool = False) -> dict:
     return rows
 
 
-def pack_expand(rows, ncol, nlev_rows, dtype) -> torch.Tensor:
-    """Grouped expansion of file-width fp64 rows to `ncol` columns -> one
-    `(nlev_rows, len(rows), ncol)` host tensor: each source column's copies
-    contiguous, the level index clamped to each row's own height, cast once
-    to `dtype` (pallas_cloudsc._pack_expand_numpy). The cast happens at file
-    width, which rounds the same values the expanded cast would. A grouped
-    layout holds `ncol // klon + 1` copies of each of the first
-    `ncol % klon` sources and `ncol // klon` of the rest, so the expansion
-    is two broadcast copies."""
+def pack_expand(rows, ncol, nlev_rows, dtype,
+                grouped: bool = True) -> torch.Tensor:
+    """Expansion of file-width fp64 rows to `ncol` columns -> one
+    `(nlev_rows, len(rows), ncol)` host tensor, the level index clamped to
+    each row's own height, cast once to `dtype`
+    (pallas_cloudsc._pack_expand_numpy). The cast happens at file width,
+    which rounds the same values the expanded cast would. Grouped: each
+    source column's copies contiguous; the layout holds `ncol // klon + 1`
+    copies of each of the first `ncol % klon` sources and `ncol // klon` of
+    the rest, so the expansion is two broadcast copies. Cyclic: column j
+    holds source `j % klon`, a gather."""
     rows = [np.atleast_2d(np.asarray(r, np.float64)) for r in rows]
     klon = rows[0].shape[-1]
     small = np.empty((nlev_rows, len(rows), klon), np.float64)
     for r, a in enumerate(rows):
         small[:, r] = a[np.minimum(np.arange(nlev_rows), a.shape[0] - 1)]
     src = torch.from_numpy(small).to(dtype)
+    if not grouped:
+        return src[..., torch.arange(ncol) % klon].contiguous()
     dst = torch.empty((nlev_rows, len(rows), ncol), dtype=dtype)
     reps, g1 = divmod(ncol, klon)
     head = g1 * (reps + 1)
@@ -221,13 +234,20 @@ def pack_expand(rows, ncol, nlev_rows, dtype) -> torch.Tensor:
 
 
 def pack_inputs_folded(inp, params, config=None, dtype=torch.float32,
-                       perm=None, fn: bool = True) -> FoldedPack:
+                       perm=None, fn: bool = True,
+                       column_order: str = "grouped") -> FoldedPack:
     """Folded pack on the host from an unexpanded `InputData`: fold in fp64
     at file width, expand to `inp.ngptot` columns in grouped order (source
-    columns permuted by `perm` first, `data.expand.activity_perm`), cast
+    columns permuted by `perm` first, `data.expand.activity_perm`) or, with
+    `column_order="cyclic"`, in the cyclic order of `data.expand`; cast
     once. `fn` streams the ZDQS row (the main path, and the only layout the
     CUDA kernel takes); without it the plain version runs the in-line
     CUADJTQ. Returns host tensors."""
+    if column_order not in ("grouped", "cyclic"):
+        raise ValueError(f"column_order {column_order!r}: grouped or cyclic")
+    grouped = column_order == "grouped"
+    if perm is not None and not grouped:
+        raise ValueError("perm requires column_order='grouped'")
     f = inp.fields
     ncol, nlev = inp.ngptot, inp.klev
     c = scheme.derived_consts(params, float(inp.ptsphy), dtype, config)
@@ -245,9 +265,10 @@ def pack_inputs_folded(inp, params, config=None, dtype=torch.float32,
     rows = [fr[n] if n in fr else get(n.upper()) for n in names]
     col_rows = [get("PLSM"), get("LDCUM"), get("KTYPE"),
                 _p(np.asarray(f["PAPH"], np.float64)[nlev])]
-    return FoldedPack(pack=pack_expand(rows, ncol, nlev + 1, dtype),
-                      col=pack_expand(col_rows, ncol, 1, dtype).reshape(4, ncol),
-                      rows=names, fn=fn)
+    return FoldedPack(
+        pack=pack_expand(rows, ncol, nlev + 1, dtype, grouped),
+        col=pack_expand(col_rows, ncol, 1, dtype, grouped).reshape(4, ncol),
+        rows=names, fn=fn)
 
 
 # ---------------------------------------------------------------------------
@@ -288,13 +309,21 @@ def check_kernel_args(p: FoldedPack, c) -> None:
                          "device")
 
 
-def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None):
+def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
+                  mode: str = "full"):
     """One CLOUDSC step on the folded pack -> (o_lev (nlev, 9, ncol),
     o_half (nlev+1, 10, ncol), o_prainfrac (ncol,)) on the pack's device.
-    A CUDA pack launches the kernel (or raises); a CPU pack runs the plain
-    version."""
-    global LAUNCHES
+    `mode` "floor" or "init" runs the diagnostic body instead of the
+    physics. A CUDA pack launches the kernel (or raises); a CPU pack runs
+    the plain version."""
+    global LAUNCHES, FLOOR_LAUNCHES, INIT_LAUNCHES
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
     if p.pack.device.type == "cpu":
+        if mode == "floor":
+            return cloudsc_floor_plain(p)
+        if mode == "init":
+            return cloudsc_init_plain(p, c)
         return cloudsc_fused_plain(p, c)
     check_kernel_args(p, c)
     from . import build
@@ -309,16 +338,22 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None):
     o_lev = p.pack.new_empty((nlev, len(OLEV_ROWS), ncol))
     o_half = p.pack.new_empty((nlev + 1, len(OHALF_ROWS), ncol))
     o_prainfrac = p.pack.new_empty((ncol,))
-    fn = (lib.cloudsc_fused_f32 if p.pack.dtype == torch.float32
-          else lib.cloudsc_fused_f64)
+    t = "f32" if p.pack.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"cloudsc_{_BODIES[mode]}_{t}")
     with torch.cuda.device(p.pack.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(p.pack.data_ptr(), p.col.data_ptr(), consts.data_ptr(),
                 o_lev.data_ptr(), o_half.data_ptr(), o_prainfrac.data_ptr(),
                 nlev, ncol, nrows, stream)
-    LAUNCHES += 1
+    if mode == "floor":
+        FLOOR_LAUNCHES += 1
+    elif mode == "init":
+        INIT_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     if rc != 0:
-        raise RuntimeError(f"cloudsc_fused launch failed: CUDA error {rc}")
+        raise RuntimeError(f"cloudsc_fused ({mode}) launch failed: CUDA "
+                           f"error {rc}")
     return o_lev, o_half, o_prainfrac
 
 
@@ -431,6 +466,34 @@ def cloudsc_fused_plain(p: FoldedPack, c):
         a_nng = a_nng + zlneg[II] * zgdph_r
 
     return o_lev, o_half, carry["prainfrac"].clone()
+
+
+def _diagnostic_outputs(v: torch.Tensor, nlev: int):
+    """A diagnostic body's three buffers from its per-level value v
+    (nlev+1, ncol): every row of level k holds v[k]; o_prainfrac holds the
+    last level's, v[nlev] (pallas_cloudsc.py:489-509)."""
+    o_lev = v[:nlev, None].expand(-1, len(OLEV_ROWS), -1).contiguous()
+    o_half = v[:, None].expand(-1, len(OHALF_ROWS), -1).contiguous()
+    return o_lev, o_half, v[nlev].clone()
+
+
+def cloudsc_floor_plain(p: FoldedPack):
+    """Plain version of the `floor` body: ztp1_in + zqv_in of level k in
+    every output row of level k."""
+    v = p.pack[:, p.row("ztp1_in")] + p.pack[:, p.row("zqv_in")]
+    return _diagnostic_outputs(v, p.nlev)
+
+
+def cloudsc_init_plain(p: FoldedPack, c):
+    """Plain version of the `init` body: section 1 (`scheme.level_init`,
+    elementwise, here over all levels at once) and ztp1 + zqsmix + zfokoop +
+    zli in every output row of level k."""
+    raw = {n: p.pack[:, p.row(n)] for n in ("ztp1_in", "zqv_in", "za_in",
+                                             "pap")}
+    raw["zqx_cld_in"] = [p.pack[:, p.row(f"zqx{m}_in")] for m in range(4)]
+    ini = scheme.level_init(raw, c)
+    v = ini["ztp1"] + ini["zqsmix"] + ini["zfokoop"] + ini["zli"]
+    return _diagnostic_outputs(v, p.nlev)
 
 
 # ---------------------------------------------------------------------------

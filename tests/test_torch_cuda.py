@@ -1,5 +1,6 @@
-"""The CUDA kernel on the card: against its plain PyTorch version on the
-same pack, and its launch count. Every test needs a CUDA device and skips
+"""The CUDA kernels on the card: each against its plain PyTorch version on
+the same inputs, and their launch counts (K1's three bodies, the overlap
+probe, the copy probe). Every test needs a CUDA device and skips
 without one (marker `cuda`). The module imports no JAX, so that it also runs
 on a GPU host without it, where the repo's conftest (which imports JAX) is
 left out:
@@ -9,7 +10,10 @@ left out:
 Tolerance: the kernel is built with -fmad=false and follows the plain
 version's operation order, so in fp64 every field is within test_golden's
 FP64_TOL (errsum/refsum) and in fp32 within test_pallas's rtol 1e-5 (both
-measured bitwise equal on an H100).
+measured bitwise equal on an H100). The floor body is one add (bitwise);
+the init body is section 1 under the same bars as the full body. The probes
+are bitwise: the overlap kernel's fmaf and the plain version's `fma32`
+round once, the copy is one fp32 multiply.
 """
 
 import numpy as np
@@ -18,6 +22,7 @@ import torch
 
 from cloudsc_tpu_torch import data as tdata
 from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+from cloudsc_tpu_torch.kernels import cuda_probes as cp
 from cloudsc_tpu_torch.params import Params
 from cloudsc_tpu_torch.physics import scheme as tscheme
 
@@ -99,3 +104,85 @@ def test_cuda_pack_refuses_non_default_config(snapshot, cuda):
     with pytest.raises(ValueError, match="SchemeConfig"):
         cc.cloudsc_fused(p, c)
     assert cc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["floor", "init"])
+def test_diagnostic_bodies_match_plain(snapshot, cuda, mode, dtype):
+    inp, params = snapshot
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    p = cc.pack_inputs_folded(inp, params, dtype=dtype,
+                              column_order="cyclic").to(cuda)
+    before = (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES)
+    got = cc.assemble(cc.cloudsc_fused(p, c, mode=mode), p, c)
+    plain = cc.cloudsc_floor_plain(p) if mode == "floor" else \
+        cc.cloudsc_init_plain(p, c)
+    want = cc.assemble(plain, p, c)
+    torch.cuda.synchronize()
+    after = (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES)
+    assert after == (before[0], before[1] + (mode == "floor"),
+                     before[2] + (mode == "init"))
+    for name in want._fields:
+        a = getattr(got, name).double().cpu().numpy()
+        b = getattr(want, name).double().cpu().numpy()
+        assert np.isfinite(a).all(), name
+        if mode == "floor":
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        elif dtype == torch.float64:
+            assert relerr(a, b) < FP64_TOL, name
+        else:
+            err = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+            assert err < 1e-5, f"{name}: maxrel={err:.3e}"
+
+
+@pytest.mark.parametrize("sb", [1, 2])
+@pytest.mark.parametrize("w", list(cp.OVERLAP_W))
+@pytest.mark.parametrize("mode", ["full", "resident"])
+@pytest.mark.parametrize("variant", list(cp.VARIANTS))
+def test_overlap_kernel_matches_plain(cuda, variant, mode, w, sb):
+    rng = np.random.default_rng(13)
+    nk2, rr, ni = 5, 40, 3
+    shape = (nk2, rr, ni * sb * 128)
+    x = (rng.random(shape) * 10.0 ** (-12 * rng.random(shape))).astype(
+        np.float32)
+    x[:, 0, ::sb * 128] = 0.9
+    x[::2, :, :sb * 128] *= np.float32(0.4)  # block 0 skips at even levels
+    x = torch.from_numpy(x).to(cuda)
+    col = torch.rand(cp.COL_SHAPE, generator=torch.Generator().manual_seed(1)
+                     ).to(cuda)
+    before = cp.OVERLAP_LAUNCHES
+    got = cp.overlap_step(x, col, variant, mode, w, sb)
+    want = cp.overlap_plain(x, col, variant, mode, w, sb)
+    torch.cuda.synchronize()
+    assert cp.OVERLAP_LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+def test_copy_kernel_matches_plain(cuda):
+    probes = [cp.contig_probe(32, 7), cp.contig_probe(3, 5),
+              cp.strided_probe(4, 3, 5, 8, 2), cp.strided_probe(2, 2, 3, 4, 1),
+              cp.tilemajor_probe(3, 4, 3, 5, 2)]
+    col = torch.rand(cp.COL_SHAPE).to(cuda)
+    for probe in probes:
+        x = torch.rand(probe.shape).to(cuda)
+        before = cp.COPY_LAUNCHES
+        got = cp.dma_copy(x, col, probe)
+        want = cp.dma_copy_plain(x, col)
+        torch.cuda.synchronize()
+        assert cp.COPY_LAUNCHES == before + 1
+        assert torch.equal(got[0], want[0]), probe.name
+        assert torch.equal(got[1], want[1]), probe.name
+
+
+def test_probe_kernels_refuse_bad_arguments(cuda):
+    x = torch.zeros((2, 40, 256), device=cuda)
+    col = torch.zeros(cp.COL_SHAPE, device=cuda)
+    before = cp.OVERLAP_LAUNCHES
+    with pytest.raises(ValueError, match="built for"):
+        cp.overlap_step(x, col, "plain", "full", 5, 1)
+    assert cp.OVERLAP_LAUNCHES == before
+    with pytest.raises(ValueError, match="probe takes"):
+        cp.dma_copy(x, col, cp.contig_probe(32, 7))

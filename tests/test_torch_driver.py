@@ -50,7 +50,12 @@ def test_port_never_imports_jax():
         "import cloudsc_tpu_torch, cloudsc_tpu_torch.cli, "
         "cloudsc_tpu_torch.data\n"
         "import cloudsc_tpu_torch.kernels.cuda_cloudsc, "
-        "cloudsc_tpu_torch.kernels.build\n"
+        "cloudsc_tpu_torch.kernels.build, "
+        "cloudsc_tpu_torch.kernels.cuda_probes\n"
+        "import cloudsc_tpu_torch.bench.kernel_lab, "
+        "cloudsc_tpu_torch.bench.overlap_probe, "
+        "cloudsc_tpu_torch.bench.dma_probe, "
+        "cloudsc_tpu_torch.bench.timing\n"
         "import cloudsc_tpu_torch.physics.scheme, "
         "cloudsc_tpu_torch.physics.satfold, cloudsc_tpu_torch.validate\n"
         "import chip_smoke\n"
@@ -185,9 +190,11 @@ def _imports(path: Path) -> set:
 
 
 def test_port_sources_import_no_jax_package():
-    """No import statement of the package or of chip_smoke names JAX or the
-    JAX package, whichever branch it sits in."""
+    """No import statement of the package (its lab under bench/ included) or
+    of chip_smoke names JAX or the JAX package, whichever branch it sits
+    in."""
     files = sorted((ROOT / "cloudsc_tpu_torch").rglob("*.py"))
+    assert ROOT / "cloudsc_tpu_torch" / "bench" / "overlap_probe.py" in files
     files.append(ROOT / "chip_smoke.py")
     bad = {}
     for f in files:

@@ -6,6 +6,9 @@ the CPU: its host pack, its plain version and the CUDA wrapper's contract.
   * the plain version, after `assemble`, is within test_golden's FP64_TOL of
     the JAX folded scan in fp64, and within test_pallas's rtol 1e-5 of the
     Pallas kernel (interpret mode) in fp32 on the same pack;
+  * the cyclic pack is bitwise the JAX package's cyclic folded pack;
+  * the plain `floor` / `init` bodies, after `assemble`, match the Pallas
+    kernel's diagnostic bodies (`_mode`, interpret mode) on the same pack;
   * a CPU pack takes the plain version and launches nothing;
   * the constants / row enums of the CUDA source match the Python layout;
   * the wrapper's argument check refuses what the kernel does not take.
@@ -70,6 +73,71 @@ def test_pack_bitwise_equals_jax(params, dtype, ncol):
     assert p.pack.dtype == tdt and p.pack.is_contiguous()
     np.testing.assert_array_equal(p.pack.numpy(), want)
     np.testing.assert_array_equal(p.col.numpy(), want_col)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cyclic_pack_bitwise_equals_jax(params, dtype):
+    inp = _inp(300)
+    tdt = getattr(torch, dtype)
+    p = cc.pack_inputs_folded(inp, params, dtype=tdt, column_order="cyclic")
+    jp, _ = pc.pack_inputs_raw(inp, 4, params, dtype=getattr(jnp, dtype),
+                               column_order="cyclic", fold=True)
+    nlev = inp.klev
+    want = np.asarray(jp["pack"]).reshape(nlev + 1, len(p.rows), -1)[..., :300]
+    np.testing.assert_array_equal(p.pack.numpy(), want)
+    np.testing.assert_array_equal(p.col.numpy(),
+                                  np.asarray(jp["col"]).reshape(4, -1)[:, :300])
+    with pytest.raises(ValueError, match="grouped"):
+        cc.pack_inputs_folded(inp, params, dtype=tdt, perm=_perm(inp, params),
+                              column_order="cyclic")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("mode", ["floor", "init"])
+def test_diagnostic_bodies_match_pallas_interpret(mode, dtype):
+    """128 columns, cyclic order: the plain `floor` / `init` bodies (through
+    the wrapper on a CPU pack) against `cloudsc_pallas(_mode=...)` in
+    interpret mode, through each side's assemble. floor is one add: bitwise
+    in both precisions. init is section 1: fp64 within rtol 1e-12 (torch's
+    and XLA's libm differ by ulps in exp); fp32 within test_fp32_oracle's
+    bounds, as test_plain_matches_pallas_interpret holds the full body."""
+    from test_fp32_oracle import OUTLIER_FRAC_BOUND, P90_BOUND, _field_stats
+
+    inp = _inp(128)
+    params = Params.from_input(inp)
+    jp, _ = pc.pack_inputs_raw(inp, 1, params, dtype=getattr(jnp, dtype),
+                               column_order="cyclic", fold=True)
+    ref = pc.cloudsc_pallas(None, params, inp.ptsphy, sublanes=1,
+                            packed=jax.device_put(jp), ncol_packed=128,
+                            interpret=True, _mode=mode)
+    tdt = getattr(torch, dtype)
+    p = cc.pack_inputs_folded(inp, params, dtype=tdt, column_order="cyclic")
+    c = tscheme.derived_consts(params, inp.ptsphy, tdt)
+    before = (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES)
+    out = cc.assemble(cc.cloudsc_fused(p, c, mode=mode), p, c)
+    assert (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES) == before
+    out_np = type(ref)(*(a.numpy() for a in out))
+    for name in ref._fields:
+        assert getattr(out_np, name).shape == getattr(ref, name).shape, name
+    if mode == "floor":
+        for name in ref._fields:
+            np.testing.assert_array_equal(getattr(out_np, name),
+                                          np.asarray(getattr(ref, name)),
+                                          err_msg=name)
+    elif dtype == "float64":
+        for name in ref._fields:
+            np.testing.assert_allclose(getattr(out_np, name),
+                                       np.asarray(getattr(ref, name)),
+                                       rtol=1e-12, atol=0, err_msg=name)
+    else:
+        ref64 = type(ref)(*(np.asarray(a, np.float64) for a in ref))
+        stats = _field_stats(ref64, out_np)
+        bad = {name: s for name, s in stats.items()
+               if not (s[0] <= P90_BOUND[name] and s[1] <= OUTLIER_FRAC_BOUND)}
+        assert not bad, f"fp32 init body vs Pallas kernel: {bad}"
+    # the body's value: prainfrac is the edge-replicated last level's
+    v = out.plude
+    np.testing.assert_array_equal(out.prainfrac_toprfz.numpy(), v[-1].numpy())
 
 
 def test_satfold_copy_is_bitwise(input_100, params):
@@ -244,7 +312,60 @@ def test_parse_ptxas():
         "ptxas info    : Used 255 registers, used 1 barriers, 752 bytes smem\n"
     )
     info = build.parse_ptxas(text)
-    assert info["f32"] == dict(stack=8, spill_stores=4, spill_loads=4,
-                               registers=168)
-    assert info["f64"]["registers"] == 255
-    assert info["f64"]["spill_stores"] == 0
+    assert info["fused_f32"] == dict(stack=8, spill_stores=4, spill_loads=4,
+                                     registers=168)
+    assert info["fused_f64"]["registers"] == 255
+    assert info["fused_f64"]["spill_stores"] == 0
+
+
+def test_parse_ptxas_keeps_each_kernel_apart():
+    """A second kernel templated on the dtype (the floor body) and the
+    probes' kernels do not overwrite K1's entry, nor do the properties of a
+    device function it calls, which ptxas prints after it."""
+    text = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN7cloudsc12fused_kernelIfEEvPKT_S3_PKdPS1_S6_S6_iii' for 'sm_90a'\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 376 bytes smem\n"
+        "ptxas info    : Function properties for __internal_accurate_pow\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN7cloudsc12floor_kernelIfEEvPKT_S3_PKdPS1_S6_S6_iii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 18 registers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN7cloudsc11init_kernelIdEEvPKT_S3_PKdPS1_S6_S6_iii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 90 registers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN6probes14overlap_kernelILi3ELi8EEEvPKfPfS3_S2_S3_iiii' for "
+        "'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 56 registers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN6probes11copy_kernelEPKfPfS1_S2_iixixx' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 24 registers\n"
+    )
+    info = build.parse_ptxas(text)
+    assert sorted(info) == ["copy", "floor_f32", "fused_f32", "init_f64",
+                            "overlap_3_8"]
+    assert info["fused_f32"] == dict(stack=8, spill_stores=8, spill_loads=8,
+                                     registers=168)
+    assert info["floor_f32"]["registers"] == 18
+    assert info["init_f64"]["registers"] == 90
+    assert build.ptxas_summary(info)[0].startswith("fused_f32: 168 registers")
+
+
+def test_every_entry_point_is_declared():
+    """Each `extern "C"` function of csrc/*.cu has its argument types in
+    build.ENTRY_POINTS, one per parameter."""
+    decl = {}
+    for path in sorted(build.CSRC.glob("*.cu")):
+        src = path.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+            decl[m.group(1)] = len(m.group(2).split(","))
+        for m in re.finditer(r"CLOUDSC_ENTRY\((\w+),", src):
+            decl[m.group(1)] = 10
+    decl.pop("NAME", None)
+    assert {k: len(v) for k, v in build.ENTRY_POINTS.items()} == decl
