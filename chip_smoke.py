@@ -8,13 +8,18 @@ the recorded numbers). It imports neither JAX nor the JAX package
 failed check (the script then exits non-zero and prints no result):
 
   0. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
-     versions, the kernel build (seconds, ptxas registers and spills), and
-     about a second of streaming to bring the clocks up;
+     versions, the kernel build (seconds, ptxas registers and spills), K1's
+     ring geometry and occupancy in each precision (S, BLOCK, MIN_BLOCKS,
+     dynamic shared memory, registers, spills, blocks an SM; the library's
+     geometry must be `cuda_cloudsc.RING`), and about a second of streaming
+     to bring the clocks up;
   1. the fused kernel against its plain PyTorch version on the main path's
      own pack (`CloudscDriver.prepare`: activity-sorted grouped columns,
      163,840 columns x 137 levels), fp64 (errsum/refsum < FP64_TOL per
-     field) and fp32 (max-abs/max-ref <= 1e-5 per field), with the launch
-     count of exactly those calls, and their times;
+     field) and fp32 (max-abs/max-ref <= 1e-5 per field), and bit for bit
+     (max abs err 0), with the launch count of exactly those calls, and
+     their times; then on the driver's pack at a ragged column count
+     (RAGGED_NCOL), every output buffer bit for bit;
   1a. K1's diagnostic bodies (`floor`, `init`) against their plain versions
      on the same pack under the same bars, and the three bodies' times;
   1b. the overlap probe (K2) against its plain version at the lab's
@@ -40,7 +45,9 @@ failed check (the script then exits non-zero and prints no result):
      `.overlap_probe` with all five variants, `.dma_probe`): the launch
      counts reset just before, read just after, every lab kernel launched.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON, with each kernel's
+bound (`bound_ms`: the larger of its modeled bytes over PEAK_GBS and its
+counted operations over PEAK_FLOPS); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -86,6 +93,24 @@ OVERLAP_TOL = 1e-6
 # assumed HBM peak of one H100 SXM (NVIDIA data sheet), at 700 W: the share
 # printed is a modeled byte count over this figure, not a measured rate
 PEAK_GBS = 3350.0
+# assumed non-tensor-core peaks of one H100 SXM (NVIDIA data sheet), flop/s
+PEAK_FLOPS = {"fp32": 67e12, "fp64": 34e12}
+# K1's operations: the reference's flop model (timer_mod.F90: 12,482,329 per
+# 100 columns); the init body's, counted from cloudsc_scheme.cuh::level_init
+# (+, -, *, / and exp as one each) plus the body's three adds, a level
+K1_FLOP_PER_COLUMN = 12482329 / 100
+INIT_FLOP_PER_LEVEL = 81
+# a column count that is neither a multiple of K1's block nor of 4
+RAGGED_NCOL = 16387
+
+
+def bound(nbytes: float, flops: float, tag: str = "fp32"):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over PEAK_GBS and the operations over
+    PEAK_FLOPS[tag]."""
+    t_bytes = nbytes / (PEAK_GBS * 1e9) * 1e3
+    t_ops = flops / PEAK_FLOPS[tag] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _relerr(got, want) -> float:
@@ -114,13 +139,25 @@ def phase0_environment():
     build.load_library()
     info = build.BUILD_INFO
     print(f"build: {info['seconds']:.2f} s (cached={info['cached']})")
-    for name in ("f32", "f64"):
-        r = info["ptxas"][f"fused_{name}"]
-        print(f"ptxas {name}: {r['registers']} registers, "
-              f"{r['spill_stores']} B spill stores, {r['spill_loads']} B "
-              f"spill loads, {r['stack']} B stack")
     for line in build.ptxas_summary(info["ptxas"]):
         print(f"ptxas {line}")
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+
+    g = cc.RING
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        occ = cc.occupancy(dtype)
+        if (occ["stages"], occ["block"], occ["min_blocks"]) != \
+                (g.stages, g.block, g.min_blocks) \
+                or occ["blocks_per_sm"] < 1:
+            raise RuntimeError(f"K1 {name}: the library runs {occ}, RING is "
+                               f"{g}")
+        r = info["ptxas"][f"fused_{name}"]
+        print(f"K1 {name}: S={occ['stages']}, BLOCK={occ['block']}, "
+              f"MIN_BLOCKS={occ['min_blocks']}, dynamic shared memory {occ['smem_bytes']} B a block; "
+              f"{r['registers']} registers, {r['spill_stores']} B spill "
+              f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
+              f"stack (ptxas); {occ['blocks_per_sm']} blocks an SM "
+              f"({occ['blocks_per_sm'] * occ['block'] // 32} warps)")
     # bring the clocks up before anything is timed (~1 s of streaming)
     x = torch.ones(1 << 28, device="cuda")
     for _ in range(1000):
@@ -191,7 +228,10 @@ def phase1_kernel_vs_plain(inp, params):
             raise RuntimeError("the plain version launched the kernel")
         want = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
         max_abs = _check_fields(tag, got, want)
-        print(f"phase 1 {tag}: kernel == plain version within bar on all 21 "
+        if max_abs != 0.0:
+            raise RuntimeError(f"{tag}: kernel not bitwise equal to the plain "
+                               f"version (max abs err {max_abs:.3e})")
+        print(f"phase 1 {tag}: kernel == plain version bit for bit on all 21 "
               f"fields, max abs err {max_abs:.3e}, launches {calls}")
         # modeled bytes the step must move: the pack and col in, the three
         # output buffers out, each once (the k+1 rereads assumed cached)
@@ -203,6 +243,33 @@ def phase1_kernel_vs_plain(inp, params):
         del p, got, want
         torch.cuda.empty_cache()
     return results
+
+
+def phase1_ragged(params):
+    """K1 against its plain version on the driver's pack at RAGGED_NCOL
+    columns, fp64 and fp32: every output buffer bit for bit."""
+    import torch
+
+    from cloudsc_tpu_torch import data
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    inp = data.load_input(data.default_input_path(), RAGGED_NCOL)
+    for dtype in (torch.float64, torch.float32):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        driver = CloudscDriver(params, inp.ptsphy, dtype=dtype, device="cuda")
+        c, consts = driver.step.c, driver.step.consts
+        p = driver.prepare(inp).to("cuda")
+        got = cc.cloudsc_fused(p, c, consts)
+        want = cc.cloudsc_fused_plain(p, c)
+        for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
+            if a.shape != b.shape or not bool(torch.isfinite(a).all()) \
+                    or not torch.equal(a, b):
+                raise RuntimeError(f"{tag} {name} at {RAGGED_NCOL} columns: "
+                                   f"kernel != plain version (max abs err "
+                                   f"{float((a - b).abs().max()):.3e})")
+        print(f"phase 1 {tag} at {RAGGED_NCOL} columns: kernel == plain "
+              f"version bit for bit on all three buffers")
 
 
 def phase1a_diagnostic_bodies(inp, params):
@@ -314,7 +381,16 @@ def phase1b_overlap_probe():
         lambda: cp.overlap_plain(x, col, "prod", "full", 8, a.sb), 1)
     del x
     torch.cuda.empty_cache()
-    return max_abs, times, (times[("prod", "full", 8)], plain_ms)
+    # prod/full/w=8: x read and out written once, colo and col/col_out;
+    # a multiply-add a value and chain step, two for each of the 33 scratch
+    # rows and one for each of the 3 lookahead rows a level, a multiply for
+    # colo and col_out
+    nk2, rr, ncol = shape
+    nbytes = (2 * nk2 * rr * ncol + ncol + 2 * col.numel()) * 4
+    flops = 2 * nk2 * ncol * (rr * 8 + 2 * cp.SCR_ROWS + cp.LOOK_ROWS) \
+        + ncol + col.numel()
+    return max_abs, times, (times[("prod", "full", 8)], plain_ms,
+                            bound(nbytes, flops))
 
 
 def phase1c_copy_probe():
@@ -474,22 +550,29 @@ def main() -> int:
 
     k = phase1_kernel_vs_plain(inp, params)
     diag, diag_bytes = phase1a_diagnostic_bodies(inp, params)
-    k2_err, k2_times, (k2_ms, k2_plain_ms) = phase1b_overlap_probe()
+    phase1_ragged(params)
+    k2_err, k2_times, (k2_ms, k2_plain_ms, k2_bound) = phase1b_overlap_probe()
     k3 = phase1c_copy_probe()
     launches, t32, run32 = phase_main_path(inp, params, torch.float32, ref)
     _, t64, run64 = phase_main_path(inp, params, torch.float64, ref)
     lab_counts = phase5_lab_path()
 
+    nlev = inp.klev
+    k1_bound = {tag: bound(k[tag][3], K1_FLOP_PER_COLUMN * NGPTOT, tag)
+                for tag in ("fp32", "fp64")}
     for tag, t, run_s in (("fp32", t32, run32), ("fp64", t64, run64)):
         max_abs, ms, plain_ms, nbytes = k[tag]
         gbs = nbytes / (ms * 1e-3) / 1e9
         busy_s = (1 + ITERATIONS) * t.compute_s
+        bound_ms, bound_by = k1_bound[tag]
         print(f"timing {tag} [{card}]: kernel {ms:.4f} ms/step "
               f"({NGPTOT / (ms * 1e-3):.0f} columns/s, CUDA events over "
               f"{ITERATIONS} launches on the driver's pack); modeled "
               f"{nbytes / 1e9:.3f} GB a step, {gbs:.0f} GB/s = "
               f"{gbs / PEAK_GBS:.3f} of an assumed {PEAK_GBS:.0f} GB/s peak; "
-              f"driver loop {t.compute_s * 1e3:.4f} ms/step; plain version "
+              f"bound {bound_ms:.4f} ms (by {bound_by}) = "
+              f"{bound_ms / ms:.3f} of the kernel's time; driver loop "
+              f"{t.compute_s * 1e3:.4f} ms/step; plain version "
               f"{plain_ms:.1f} ms/step (1 call); h2d {t.h2d_s * 1e3:.1f} ms; "
               f"d2h {t.d2h_s * 1e3:.1f} ms; warm-up {t.compile_s:.2f} s; "
               f"kernel busy {busy_s:.4f} s of driver.run {run_s:.3f} s "
@@ -523,32 +606,45 @@ def main() -> int:
               f"{plain_ms:.4f} ms, {nbytes / (plain_ms * 1e-3) / 1e9:.0f} GB/s "
               f"(CUDA events over {ITERATIONS} launches)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    # the table's times are fp32 (K1's three bodies, the probes)
     max_abs, ms, plain_ms, _ = k["fp32"]
+    bound_ms, bound_by = k1_bound["fp32"]
     entries = [{
         "name": "cloudsc_fused", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }]
+    diag_flops = {"floor": (nlev + 1) * NGPTOT,
+                  "init": INIT_FLOP_PER_LEVEL * (nlev + 1) * NGPTOT}
     for mode in ("floor", "init"):
         max_abs, ms, plain_ms = diag[(mode, "fp32")]
+        bound_ms, bound_by = bound(diag_bytes["fp32"], diag_flops[mode])
         entries.append({
             "name": f"cloudsc_{mode}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
             "launches": lab_counts[f"cloudsc_{mode}"],
             "max_abs_err": max(max_abs, diag[(mode, "fp64")][0]),
-            "ms": ms, "plain_ms": plain_ms})
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None})
     entries.append({
         "name": "overlap_probe", "route": "cuda", "source": PROBES_SOURCE,
         "replaces": "bench/overlap_probe.py:171",
         "launches": lab_counts["overlap_probe"], "max_abs_err": k2_err,
-        "ms": k2_ms, "plain_ms": k2_plain_ms})
-    ms, plain_ms, _, _ = k3["strided"]
+        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1], "library_ms": None})
+    ms, plain_ms, nbytes, _ = k3["strided"]
+    # x and col read once and written once; one multiply a value
+    bound_ms, bound_by = bound(nbytes + 2 * 4 * 1024, nbytes // 8 + 1024)
     entries.append({
         "name": "dma_copy", "route": "cuda", "source": PROBES_SOURCE,
         "replaces": "bench/dma_probe.py:80",
         "launches": lab_counts["dma_copy"],
         "max_abs_err": max(r[3] for r in k3.values()),
-        "ms": ms, "plain_ms": plain_ms})
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        # the plain version is one PyTorch call, x * 1.0000001
+        "library_ms": plain_ms})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,32 +6,61 @@
 // folded input pack with the streamed ZDQS row, the four derivable flux rows
 // folded out of the outputs, SchemeConfig (2, 2, 1, 1), no aerosol rows.
 //
-// Design: the reference's own k-caching schedule. One thread owns one column
-// and integrates it top-down through all levels; the 33 cross-level carries
-// and the section-8 running sums are locals (registers, or local memory where
-// ptxas spills). Element (k, r, j) of the pack sits at (k*nrows + r)*ncol + j,
-// so every load and store of a warp is one coalesced run; the k+1 reads
-// (pmf, plu, paph) come straight from level k+1 of the same pack. Nothing of
-// the TPU layout carries over: no (8, 128) tiles, no lps blocking, no
-// lookahead block, no scratch array. The dynamic skips of the TPU kernel
-// (above-cloud-top levels, the precipitation region, the rain sub-branch,
-// the 5.2.1 no-overshoot case) become per-thread branches.
+// Schedule: the reference's own k-caching schedule. One thread owns one
+// column and integrates it top-down through all levels; the 33 cross-level
+// carries and the section-8 running sums are locals (registers). Element
+// (k, r, j) of the pack sits at
+// (k*nrows + r)*ncol + j, so every copy and store of a warp is one coalesced
+// run. The dynamic skips of the TPU kernel (above-cloud-top levels, the
+// precipitation region, the rain sub-branch, the 5.2.1 no-overshoot case)
+// are per-thread branches. Built with -fmad=false, in the plain version's
+// operation order: bitwise equal to it (kernels/cuda_cloudsc.py).
 //
-// What bounds it on this card: per column and step it streams about
-// 138 x 19 values in and 137 x 9 + 138 x 10 values out (~5,240 values:
-// 21 kB in fp32, 42 kB in fp64) against ~124,823 flops in the reference's
-// flop model (timer_mod.F90: 12,482,329 per 100 columns) — about 6 flop per
-// byte in fp32, so a full-occupancy kernel would be bandwidth-bound. This
-// first version is a simple, correct kernel: it is register-bound (one large
-// unrolled body per thread, spills recorded by the build), built with
-// -fmad=false so it agrees with its plain PyTorch version to a few ulps.
+// What bounds it on this card: per column and step it streams 138 x 19
+// values in and 137 x 9 + 138 x 10 values out (~5,240 values: 21 kB in
+// fp32, 42 kB in fp64) against ~124,823 flops in the reference's flop model
+// (timer_mod.F90: 12,482,329 per 100 columns), about 6 flop a byte in fp32:
+// by the roofline the bytes bound it (PERF.md: 1.025 / 2.050 ms a step at
+// 163,840 columns). But one column a thread takes many registers, so few
+// warps are resident, and each level's work is a long dependent scalar
+// chain. A kernel that loads level k's rows at level k waits out the memory
+// latency once a level: the first version did, streamed at ~60 % of the
+// copy roof, and did not hide its compute under the stream.
+//
+// What the TPU kernel did about the same problem: its Pallas pipeline
+// double-buffers each grid step's block of lps levels, plus a lookahead
+// block for the k+1 rows, so the next levels arrive in VMEM while the
+// current ones compute (pallas_cloudsc.py:847-876). Here each thread runs
+// its own pipeline: a ring of S stages of the 19 input rows in dynamic
+// shared memory, laid out [S][R_COUNT][BLOCK] so a warp's copies land on
+// consecutive words. The thread copies level k+S-1 of its own column with
+// cp.async (4 or 8 bytes, no registers held while in flight) and commits one
+// group a level; before level k computes, cp.async.wait_group(S-2) makes
+// levels k and k+1 complete (the k+1 rows pmf, plu, paph included). A thread
+// reads only what it copied itself, so no block barrier is needed, and
+// divergence between columns or a ragged last block costs nothing.
+// `kernels/cuda_cloudsc.py::ring_schedule` models the slots and groups, and
+// the CPU tests check it; `cuda_cloudsc.RING` holds the geometry of both
+// precisions (S, BLOCK and the launch bound's blocks an SM), chosen by
+// bench/ring_sweep.py, and kernels/build.py passes it here as the
+// CLOUDSC_RING_* macros. Holding no loads in registers, the kernel needs
+// 128 (fp32) / 236 (fp64) registers and spills nothing, 16 / 8 warps an SM
+// on an H100; the stream then hides under the compute, and the body's own
+// instruction stream sets the pace.
 //
 // Beside it, the TPU kernel's two diagnostic bodies (floor_kernel,
 // init_kernel; see below), which split the step's time into stream and
-// compute.
+// compute. They keep their direct loads and 128-thread blocks.
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 #include "cloudsc_scheme.cuh"
+
+#if !defined(CLOUDSC_RING_STAGES) || !defined(CLOUDSC_RING_BLOCK) || \
+    !defined(CLOUDSC_RING_MIN_BLOCKS)
+#error "the ring geometry comes from kernels/build.py (cuda_cloudsc.RING)"
+#endif
 
 namespace cloudsc {
 
@@ -42,19 +71,48 @@ enum { OL_PLUDE, OL_PCOVPTOT, OL_TEND_T, OL_TEND_Q, OL_TEND_A, OL_TCLD0,
 enum { OH_PFSQLF, OH_PFSQIF, OH_PFCQLNG, OH_PFCQNNG, OH_PFSQRF, OH_PFSQSF,
        OH_PFCQRNG, OH_PFCQSNG, OH_PFPLSL, OH_PFPLSN, OH_COUNT };
 
-constexpr int BLOCK = 128;
+// K1's ring geometry: S stages, BLOCK threads a block, the launch bound's
+// MIN_BLOCKS an SM
+constexpr int RING_S = CLOUDSC_RING_STAGES;
+constexpr int RING_BLOCK = CLOUDSC_RING_BLOCK;
+constexpr int RING_MIN_BLOCKS = CLOUDSC_RING_MIN_BLOCKS;
+static_assert(RING_S >= 3,
+              "levels k and k+1 are read while level k+S-1 is in flight");
+
+// dynamic shared memory of one block of fused_kernel<T>: the ring
+template <typename T> constexpr int ring_bytes() {
+  return RING_S * R_COUNT * RING_BLOCK * int(sizeof(T));
+}
+
+// one element from device memory into shared memory, asynchronously
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every committed group but the N most recent is complete
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(RING_BLOCK, RING_MIN_BLOCKS)
 fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
              const double* __restrict__ kd, T* __restrict__ o_lev,
              T* __restrict__ o_half, T* __restrict__ o_prainfrac, int nlev,
              int ncol, int nrows) {
+  constexpr int S = RING_S, BLOCK = RING_BLOCK, D = S - 1;
   // the constants, cast to the working precision once per block
   __shared__ T K[C_COUNT];
+  extern __shared__ __align__(16) unsigned char ring_smem[];
   for (int i = threadIdx.x; i < C_COUNT; i += blockDim.x) K[i] = T(kd[i]);
   __syncthreads();
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.x * BLOCK + threadIdx.x;
   if (j >= ncol) return;
 
   const T Z = T(0);
@@ -62,9 +120,25 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   const int nssopt = int(kd[C_NSSOPT]);
   const T zqtmst = K[C_zqtmst], ptsphy = K[C_ptsphy];
   const size_t n = size_t(ncol);
-  auto P = [&](int k, int r) -> T {
-    return pack[(size_t(k) * nrows + r) * n + j];
+
+  // this thread's slots: row r of stage s at mine[(s*R_COUNT + r)*BLOCK]
+  T* const mine = reinterpret_cast<T*>(ring_smem) + threadIdx.x;
+  // copy level `lev`'s rows into stage lev % S; one group a level, empty
+  // past the last level, so group g always holds level g
+  auto fetch = [&](int lev) {
+    if (lev <= nlev) {
+      const T* src = pack + size_t(lev) * nrows * n + j;
+      T* dst = mine + (lev % S) * R_COUNT * BLOCK;
+#pragma unroll
+      for (int r = 0; r < R_COUNT; ++r) cp_async(dst + r * BLOCK, src + r * n);
+    }
+    cp_async_commit();
   };
+  // row r of level `lev`, once its group is complete
+  auto P = [&](int lev, int r) -> T {
+    return mine[((lev % S) * R_COUNT + r) * BLOCK];
+  };
+  for (int lev = 0; lev < D; ++lev) fetch(lev);
 
   const T plsm = col[0 * n + j];
   const bool ldcum = col[1 * n + j] > T(0.5);
@@ -85,7 +159,6 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   T alf_prev = Z, aif_prev = Z, alng_prev = Z, anng_prev = Z;
   T rain_prev = Z, snow_prev = Z, lnegr_prev = Z, lnegs_prev = Z;
 
-  T paph_k = P(0, R_PAPH);
   for (int k = 0; k <= nlev; ++k) {
     // section 8 flux rows for half-level k, the state before level k
     // (ref: 2788-2867; rain/snow alias onto the liquid/ice flux of the
@@ -103,11 +176,17 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
     oh[OH_PFPLSN * n] = cr.pfplsx[IS] + cr.pfplsx[II];
     if (k == nlev) break;
 
+    // level k+S-1 goes into the stage level k-1 left; levels k and k+1
+    // are then complete
+    fetch(k + D);
+    cp_async_wait<S - 2>();
+
     T zqx_in[4];
 #pragma unroll
     for (int m = 0; m < 4; ++m) zqx_in[m] = P(k, R_ZQX0_IN + m);
     const T pap = P(k, R_PAP);
     const T plude_in = P(k, R_PLUDE);
+    const T paph_k = P(k, R_PAPH);
     const T paph_k1 = P(k + 1, R_PAPH);
     Init<T> in;
     level_init(K, P(k, R_ZTP1_IN), P(k, R_ZQV_IN), P(k, R_ZA_IN), zqx_in, pap,
@@ -183,8 +262,8 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
     a_if = a_if + ice_inc;
     a_lng = a_lng + in.zlneg[IL] * zgdph_r;
     a_nng = a_nng + in.zlneg[II] * zgdph_r;
-    paph_k = paph_k1;
   }
+  cp_async_wait<0>();  // only empty groups are left
   o_prainfrac[j] = cr.prainfrac;
 }
 
@@ -200,6 +279,8 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
 // output row of level k gets the level's value v (o_lev only for k < nlev);
 // o_prainfrac gets the value of the last level the loop visits, the
 // edge-replicated row nlev, as the TPU body leaves it.
+constexpr int DIAG_BLOCK = 128;
+
 template <typename T>
 __device__ __forceinline__ void load_level(const T* pack, int k, size_t n,
                                            int j, T (&row)[R_COUNT]) {
@@ -228,7 +309,7 @@ __device__ __forceinline__ void write_level(T* o_lev, T* o_half, int k,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(DIAG_BLOCK)
 floor_kernel(const T* __restrict__ pack, const T* __restrict__ col,
              const double* __restrict__ kd, T* __restrict__ o_lev,
              T* __restrict__ o_half, T* __restrict__ o_prainfrac, int nlev,
@@ -248,7 +329,7 @@ floor_kernel(const T* __restrict__ pack, const T* __restrict__ col,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(DIAG_BLOCK)
 init_kernel(const T* __restrict__ pack, const T* __restrict__ col,
             const double* __restrict__ kd, T* __restrict__ o_lev,
             T* __restrict__ o_half, T* __restrict__ o_prainfrac, int nlev,
@@ -276,6 +357,26 @@ init_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   o_prainfrac[j] = v;
 }
 
+// fused_kernel<T> may take more than the default 48 KB of dynamic shared
+// memory. The attribute belongs to the function on each device: it is set
+// once a device, and later calls return that first call's result.
+constexpr int MAX_DEVICES = 64;
+
+template <typename T> cudaError_t configure_fused() {
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t result[MAX_DEVICES];
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    result[dev] = cudaFuncSetAttribute(
+        fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ring_bytes<T>());
+  });
+  return result[dev];
+}
+
 enum Body { FULL, FLOOR, INIT };
 
 template <typename T, Body B>
@@ -283,18 +384,48 @@ int launch(const T* pack, const T* col, const double* consts, T* o_lev,
            T* o_half, T* o_prainfrac, int nlev, int ncol, int nrows,
            void* stream) {
   if (ncol <= 0) return 0;
-  const int grid = (ncol + BLOCK - 1) / BLOCK;
   auto s = static_cast<cudaStream_t>(stream);
-  if constexpr (B == FULL)
-    fused_kernel<T><<<grid, BLOCK, 0, s>>>(pack, col, consts, o_lev, o_half,
-                                           o_prainfrac, nlev, ncol, nrows);
-  else if constexpr (B == FLOOR)
-    floor_kernel<T><<<grid, BLOCK, 0, s>>>(pack, col, consts, o_lev, o_half,
-                                           o_prainfrac, nlev, ncol, nrows);
-  else
-    init_kernel<T><<<grid, BLOCK, 0, s>>>(pack, col, consts, o_lev, o_half,
-                                          o_prainfrac, nlev, ncol, nrows);
+  if constexpr (B == FULL) {
+    const cudaError_t e = configure_fused<T>();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fused_kernel<T><<<(ncol + RING_BLOCK - 1) / RING_BLOCK, RING_BLOCK,
+                      ring_bytes<T>(), s>>>(
+        pack, col, consts, o_lev, o_half, o_prainfrac, nlev, ncol, nrows);
+  } else {
+    const int grid = (ncol + DIAG_BLOCK - 1) / DIAG_BLOCK;
+    if constexpr (B == FLOOR)
+      floor_kernel<T><<<grid, DIAG_BLOCK, 0, s>>>(
+          pack, col, consts, o_lev, o_half, o_prainfrac, nlev, ncol, nrows);
+    else
+      init_kernel<T><<<grid, DIAG_BLOCK, 0, s>>>(
+          pack, col, consts, o_lev, o_half, o_prainfrac, nlev, ncol, nrows);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// What fused_kernel<T> runs with on the current device: out[0] blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] dynamic shared
+// memory bytes a block, out[2..4] S, BLOCK and MIN_BLOCKS, out[5]
+// registers a thread, out[6] local memory bytes a thread (stack and
+// spills), the last two from cudaFuncGetAttributes.
+template <typename T> int occupancy(int* out) {
+  cudaError_t e = configure_fused<T>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fused_kernel<T>, RING_BLOCK, ring_bytes<T>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fused_kernel<T>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = blocks;
+  out[1] = ring_bytes<T>();
+  out[2] = RING_S;
+  out[3] = RING_BLOCK;
+  out[4] = RING_MIN_BLOCKS;
+  out[5] = attr.numRegs;
+  out[6] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 }  // namespace cloudsc
@@ -317,3 +448,12 @@ CLOUDSC_ENTRY(cloudsc_floor_f32, float, FLOOR)
 CLOUDSC_ENTRY(cloudsc_floor_f64, double, FLOOR)
 CLOUDSC_ENTRY(cloudsc_init_f32, float, INIT)
 CLOUDSC_ENTRY(cloudsc_init_f64, double, INIT)
+
+// cloudsc_fused_occupancy_{f32,f64}(int out[7]) -> cudaError_t; see
+// cloudsc::occupancy
+extern "C" int cloudsc_fused_occupancy_f32(int* out) {
+  return cloudsc::occupancy<float>(out);
+}
+extern "C" int cloudsc_fused_occupancy_f64(int* out) {
+  return cloudsc::occupancy<double>(out);
+}

@@ -8,8 +8,9 @@ together, and one `nvcc -shared` links the objects. The library goes to
 of the sources and flags, so a rerun on the same checkout does not rebuild.
 Flags: sm_90a, -O3, C++17, -fmad=false (no multiply-add contraction, so the
 kernels agree with their plain versions to a few ulps; the probes write
-their multiply-adds as explicit fmaf) and no fast math. A failed build
-raises.
+their multiply-adds as explicit fmaf) and no fast math, plus K1's ring
+geometry as -D macros (`cuda_cloudsc.RING`, or another geometry for a
+sweep: `bench/ring_sweep.py`). A failed build raises.
 """
 
 from __future__ import annotations
@@ -38,18 +39,17 @@ _STEP_ARGS = [_vp] * 6 + [_i] * 3 + [_vp]
 ENTRY_POINTS = {
     **{f"cloudsc_{body}_{t}": _STEP_ARGS
        for body in ("fused", "floor", "init") for t in ("f32", "f64")},
+    # (int out[7]): K1's occupancy and geometry on the current device
+    **{f"cloudsc_fused_occupancy_{t}": [_vp] for t in ("f32", "f64")},
     "overlap_probe": [_vp] * 5 + [_i] * 7 + [_vp],
     "copy_probe": [_vp] * 4 + [_i, _i, _ll, _i, _ll, _ll, _i, _vp],
 }
 
-_lib = None
-# what the last build (or cache hit) reported: seconds, ptxas lines,
+# loaded libraries by (geometry, sources); (None, None) is the default build
+_libs: dict = {}
+# what the default build (or its cache hit) reported: seconds, ptxas lines,
 # per-kernel registers/spills
 BUILD_INFO: dict = {}
-
-
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -60,9 +60,25 @@ def _nvcc() -> str:
     return nvcc
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+def nvcc_flags(ring=None) -> tuple:
+    """NVCC_FLAGS and K1's ring geometry (a `cuda_cloudsc.RingGeometry`;
+    None is `RING`) as the CLOUDSC_RING_<STAGES|BLOCK|MIN_BLOCKS> macros
+    of csrc/cloudsc_fused.cu."""
+    if ring is None:
+        from .cuda_cloudsc import RING as ring
+    return NVCC_FLAGS + (f"-DCLOUDSC_RING_STAGES={ring.stages}",
+                         f"-DCLOUDSC_RING_BLOCK={ring.block}",
+                         f"-DCLOUDSC_RING_MIN_BLOCKS={ring.min_blocks}")
+
+
+def _sources(sources=None) -> list[Path]:
+    """The .cu files to compile: all of csrc/, or `sources`."""
+    return sorted(sources) if sources else sorted(CSRC.glob("*.cu"))
+
+
+def source_hash(flags: tuple, sources=None) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in _sources(sources) + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -154,28 +170,34 @@ def ptxas_summary(info: dict) -> list[str]:
     return lines
 
 
-def build(verbose: bool = True) -> Path:
-    """Compile the sources unless this hash is already built; returns the
-    library path. Prints the build seconds and ptxas' registers/spills."""
-    out_dir = BUILD_ROOT / source_hash()
+def build(verbose: bool = True, ring=None, sources=None) -> Path:
+    """Compile the sources (all of csrc/*.cu, or `sources`) with K1's ring
+    geometry (`ring`, see `nvcc_flags`) unless this hash is already built;
+    returns the library path, beside which `ptxas.log` holds ptxas' report.
+    The default build records its seconds and ptxas' registers/spills in
+    BUILD_INFO and prints them."""
+    default = ring is None and sources is None
+    flags = nvcc_flags(ring)
+    srcs = _sources(sources)
+    out_dir = BUILD_ROOT / source_hash(flags, sources)
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "ptxas.log"
     if lib_path.exists():
-        text = log_path.read_text() if log_path.exists() else ""
-        BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True,
-                          ptxas=parse_ptxas(text))
+        if default:
+            text = log_path.read_text() if log_path.exists() else ""
+            BUILD_INFO.update(path=str(lib_path), seconds=0.0, cached=True,
+                              ptxas=parse_ptxas(text))
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = os.getpid()
     t0 = time.perf_counter()
-    srcs = sorted(CSRC.glob("*.cu"))
     objs, procs = [], []
     for src in srcs:
         obj = out_dir / f".{src.stem}.{tag}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *flags, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     text, failed = "", []
     for src, proc in zip(srcs, procs):
@@ -197,6 +219,8 @@ def build(verbose: bool = True) -> Path:
     seconds = time.perf_counter() - t0
     log_path.write_text(text)
     os.replace(tmp, lib_path)
+    if not default:
+        return lib_path
     info = parse_ptxas(text)
     BUILD_INFO.update(path=str(lib_path), seconds=seconds, cached=False,
                       ptxas=info)
@@ -207,16 +231,20 @@ def build(verbose: bool = True) -> Path:
     return lib_path
 
 
-def load_library():
+def load_library(ring=None, sources=None):
     """The built library with its C entry points declared (builds on first
-    use)."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+    use); `ring` and `sources` as for `build`. A library built from some of
+    the sources declares the entry points it has."""
+    key = (ring,
+           tuple(sorted(map(str, sources))) if sources else None)
+    if key in _libs:
+        return _libs[key]
+    lib = ctypes.CDLL(str(build(ring=ring, sources=sources)))
     for name, argtypes in ENTRY_POINTS.items():
+        if sources and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _lib = lib
-    return _lib
+    _libs[key] = lib
+    return lib

@@ -22,6 +22,13 @@ CPU pack. Its `mode` also selects the TPU kernel's two diagnostic bodies
 measurement lab), with plain versions `cloudsc_floor_plain` /
 `cloudsc_init_plain`. `LAUNCHES`, `FLOOR_LAUNCHES` and `INIT_LAUNCHES` count
 the launches of the three bodies.
+
+The kernel streams each column's input rows through a per-thread ring of
+shared-memory stages filled by asynchronous copies. `RING` holds its
+geometry, the same in both precisions (the build passes it to the source
+as macros),
+`ring_schedule` models its slots and copy groups, and `occupancy` reads
+what the built kernel runs with on the card.
 """
 
 from __future__ import annotations
@@ -107,6 +114,56 @@ _FOLDED = {
 # The flat constants vector the kernel reads, one double each, in this
 # order; csrc/cloudsc_fused.cu declares the matching `enum Const`.
 CONST_NAMES = _C_NAMES + _THF_NAMES + _E_NAMES + tuple(_FOLDED)
+
+
+@dataclasses.dataclass(frozen=True)
+class RingGeometry:
+    """K1's input ring: `stages` (S) levels of the pack's rows a block in
+    shared memory, `block` threads a block, and the `__launch_bounds__`
+    minimum of `min_blocks` blocks an SM (a register cap, not a promise)."""
+
+    stages: int
+    block: int
+    min_blocks: int
+
+    def smem_bytes(self, itemsize: int) -> int:
+        """Dynamic shared memory of one block: [S][rows][block] values."""
+        return self.stages * len(pack_rows(True)) * self.block * itemsize
+
+
+# the ring geometry K1 is built with in both precisions, the fastest in
+# each of the trials of bench/ring_sweep.py on an H100 (PERF.md);
+# kernels/build.py passes it to csrc/cloudsc_fused.cu as the
+# CLOUDSC_RING_* macros
+RING = RingGeometry(stages=4, block=128, min_blocks=2)
+
+
+def ring_schedule(nlev: int, stages: int) -> list[tuple]:
+    """The order in which one thread of K1 copies, commits, waits for and
+    reads its ring, for `nlev` levels (pack levels 0..nlev) and S =
+    `stages`: ("copy", level, stage), ("commit",), ("wait", n) — every
+    committed group but the n most recent is complete — and ("read",
+    level, stage). Level L goes to stage L % S; group g holds level g (or
+    nothing, past nlev). The prologue copies levels 0..S-2; level k, before
+    it computes, copies level k+S-1, waits with n = S-2 and reads levels k
+    and k+1 (the k+1 rows pmf, plu, paph)."""
+    d = stages - 1
+    ops: list[tuple] = []
+
+    def fetch(lev):
+        if lev <= nlev:
+            ops.append(("copy", lev, lev % stages))
+        ops.append(("commit",))
+
+    for lev in range(d):
+        fetch(lev)
+    for k in range(nlev):
+        fetch(k + d)
+        ops.append(("wait", stages - 2))
+        ops.append(("read", k, k % stages))
+        ops.append(("read", k + 1, (k + 1) % stages))
+    ops.append(("wait", 0))
+    return ops
 
 
 def const_values(c) -> dict:
@@ -310,12 +367,13 @@ def check_kernel_args(p: FoldedPack, c) -> None:
 
 
 def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
-                  mode: str = "full"):
+                  mode: str = "full", lib=None):
     """One CLOUDSC step on the folded pack -> (o_lev (nlev, 9, ncol),
     o_half (nlev+1, 10, ncol), o_prainfrac (ncol,)) on the pack's device.
     `mode` "floor" or "init" runs the diagnostic body instead of the
     physics. A CUDA pack launches the kernel (or raises); a CPU pack runs
-    the plain version."""
+    the plain version. `lib` is a library from `build.load_library` (the
+    default build if None)."""
     global LAUNCHES, FLOOR_LAUNCHES, INIT_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
@@ -326,9 +384,10 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
             return cloudsc_init_plain(p, c)
         return cloudsc_fused_plain(p, c)
     check_kernel_args(p, c)
-    from . import build
+    if lib is None:
+        from . import build
 
-    lib = build.load_library()
+        lib = build.load_library()
     if consts is None:
         consts = const_vector(c, p.pack.device)
     if consts.dtype != torch.float64 or consts.device != p.pack.device \
@@ -355,6 +414,31 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
         raise RuntimeError(f"cloudsc_fused ({mode}) launch failed: CUDA "
                            f"error {rc}")
     return o_lev, o_half, o_prainfrac
+
+
+OCCUPANCY_KEYS = ("blocks_per_sm", "smem_bytes", "stages", "block",
+                  "min_blocks", "registers", "local_bytes")
+
+
+def occupancy(dtype, lib=None) -> dict:
+    """What K1 in `dtype` runs with on the current CUDA device, from the
+    built library: blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at its block and dynamic shared memory), the dynamic shared memory
+    bytes a block, its ring geometry, and the registers and local-memory
+    bytes a thread (cudaFuncGetAttributes). Needs a card."""
+    import ctypes
+
+    if lib is None:
+        from . import build
+
+        lib = build.load_library()
+    t = "f32" if dtype == torch.float32 else "f64"
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    rc = getattr(lib, f"cloudsc_fused_occupancy_{t}")(ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"cloudsc_fused_occupancy_{t} failed: CUDA error "
+                           f"{rc}")
+    return dict(zip(OCCUPANCY_KEYS, out))
 
 
 def cloudsc_fused_plain(p: FoldedPack, c):

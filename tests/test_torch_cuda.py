@@ -1,19 +1,20 @@
 """The CUDA kernels on the card: each against its plain PyTorch version on
-the same inputs, and their launch counts (K1's three bodies, the overlap
-probe, the copy probe). Every test needs a CUDA device and skips
-without one (marker `cuda`). The module imports no JAX, so that it also runs
-on a GPU host without it, where the repo's conftest (which imports JAX) is
-left out:
+the same inputs, their launch counts (K1's three bodies, the overlap probe,
+the copy probe) and K1's occupancy. Every test needs a CUDA device and
+skips without one (marker `cuda`). The module imports no JAX, so that it
+also runs on a GPU host without it, where the repo's conftest (which
+imports JAX) is left out:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerance: the kernel is built with -fmad=false and follows the plain
 version's operation order, so in fp64 every field is within test_golden's
-FP64_TOL (errsum/refsum) and in fp32 within test_pallas's rtol 1e-5 (both
-measured bitwise equal on an H100). The floor body is one add (bitwise);
-the init body is section 1 under the same bars as the full body. The probes
-are bitwise: the overlap kernel's fmaf and the plain version's `fma32`
-round once, the copy is one fp32 multiply.
+FP64_TOL (errsum/refsum) and in fp32 within test_pallas's rtol 1e-5, and
+`test_kernel_bitwise_equals_plain` holds it bit for bit (max abs err 0).
+The floor body is one add (bitwise); the init body is section 1 under the
+same bars as the full body. The probes are bitwise: the overlap kernel's
+fmaf and the plain version's `fma32` round once, the copy is one fp32
+multiply.
 """
 
 import numpy as np
@@ -93,6 +94,69 @@ def test_launch_count(snapshot, cuda):
     cc.cloudsc_fused_plain(p, step.c)
     torch.cuda.synchronize()
     assert cc.LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("order", ["grouped", "cyclic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ncol", [16387, 16384])
+def test_kernel_bitwise_equals_plain(cuda, ncol, dtype, order):
+    """The ring schedule changes where the rows come from, not the
+    arithmetic: every output buffer equal bit for bit to the plain
+    version's (max abs err 0), at a column count that is neither a multiple
+    of the block nor of 4 (16,387: a ragged last block) and at one that
+    fills whole blocks, in both column orders."""
+    inp = tdata.load_input(tdata.default_input_path(), ncol)
+    params = Params.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    p = cc.pack_inputs_folded(inp, params, dtype=dtype,
+                              column_order=order).to(cuda)
+    before = cc.LAUNCHES
+    got = cc.cloudsc_fused(p, c)
+    want = cc.cloudsc_fused_plain(p, c)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == before + 1
+    for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
+        assert a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert float((a - b).abs().max()) == 0.0, name
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_bitwise_at_another_geometry(cuda, dtype):
+    """The sweep's path (bench/ring_sweep.py): K1 built alone at a geometry
+    other than RING's — S=3, 64-thread blocks — is still bit for bit the
+    plain version at a ragged column count, and runs with that geometry."""
+    from cloudsc_tpu_torch.kernels import build
+
+    g = cc.RingGeometry(stages=3, block=64, min_blocks=2)
+    lib = build.load_library(ring=g,
+                             sources=[build.CSRC / "cloudsc_fused.cu"])
+    occ = cc.occupancy(dtype, lib)
+    assert (occ["stages"], occ["block"], occ["min_blocks"]) == (3, 64, 2)
+    assert occ["blocks_per_sm"] >= 1
+    inp = tdata.load_input(tdata.default_input_path(), 16387)
+    params = Params.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    p = cc.pack_inputs_folded(inp, params, dtype=dtype).to(cuda)
+    got = cc.cloudsc_fused(p, c, lib=lib)
+    want = cc.cloudsc_fused_plain(p, c)
+    for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_occupancy(cuda, dtype):
+    """The built kernel runs with the geometry of cuda_cloudsc.RING and at
+    least one block an SM."""
+    occ = cc.occupancy(dtype)
+    g = cc.RING
+    assert occ["blocks_per_sm"] >= 1
+    assert (occ["stages"], occ["block"], occ["min_blocks"]) == \
+        (g.stages, g.block, g.min_blocks)
+    assert occ["smem_bytes"] == g.smem_bytes(8 if dtype == torch.float64
+                                             else 4)
+    assert 0 < occ["registers"] <= 255
 
 
 def test_cuda_pack_refuses_non_default_config(snapshot, cuda):

@@ -55,6 +55,7 @@ def test_port_never_imports_jax():
         "import cloudsc_tpu_torch.bench.kernel_lab, "
         "cloudsc_tpu_torch.bench.overlap_probe, "
         "cloudsc_tpu_torch.bench.dma_probe, "
+        "cloudsc_tpu_torch.bench.ring_sweep, "
         "cloudsc_tpu_torch.bench.timing\n"
         "import cloudsc_tpu_torch.physics.scheme, "
         "cloudsc_tpu_torch.physics.satfold, cloudsc_tpu_torch.validate\n"

@@ -11,9 +11,13 @@ the CPU: its host pack, its plain version and the CUDA wrapper's contract.
     kernel's diagnostic bodies (`_mode`, interpret mode) on the same pack;
   * a CPU pack takes the plain version and launches nothing;
   * the constants / row enums of the CUDA source match the Python layout;
-  * the wrapper's argument check refuses what the kernel does not take.
+  * the wrapper's argument check refuses what the kernel does not take;
+  * the kernel's input ring: its geometry reaches the source, its occupancy
+    query is declared, and a replay of `ring_schedule` shows every read
+    complete and no stage overwritten before its last reader.
 """
 
+import ctypes
 import re
 
 import jax
@@ -369,3 +373,113 @@ def test_every_entry_point_is_declared():
             decl[m.group(1)] = 10
     decl.pop("NAME", None)
     assert {k: len(v) for k, v in build.ENTRY_POINTS.items()} == decl
+
+
+def test_occupancy_entry_points_are_declared():
+    """K1's occupancy query, one per precision, takes one pointer (int
+    out[7]) and is declared so in the source."""
+    src = (build.CSRC / "cloudsc_fused.cu").read_text()
+    for t in ("f32", "f64"):
+        name = f"cloudsc_fused_occupancy_{t}"
+        assert build.ENTRY_POINTS[name] == [ctypes.c_void_p]
+        assert re.search(r'extern "C" int %s\(int\* out\)' % name, src)
+    assert len(cc.OCCUPANCY_KEYS) == 7
+
+
+def test_ring_geometry_reaches_the_source():
+    """One geometry both read: `cuda_cloudsc.RING` becomes the build's
+    CLOUDSC_RING_* macros, which the source requires and reads."""
+    flags = build.nvcc_flags()
+    src = (build.CSRC / "cloudsc_fused.cu").read_text()
+    assert "#error" in src
+    g = cc.RING
+    for key, value in (("STAGES", g.stages), ("BLOCK", g.block),
+                       ("MIN_BLOCKS", g.min_blocks)):
+        macro = f"CLOUDSC_RING_{key}"
+        assert f"-D{macro}={value}" in flags
+        assert src.count(macro) == 2, macro  # the guard and the read
+    assert g.stages >= 3 and g.block % 32 == 0
+    for size in (4, 8):
+        assert g.smem_bytes(size) == g.stages * 19 * g.block * size
+    other = cc.RingGeometry(5, 64, 2)
+    assert build.source_hash(build.nvcc_flags(other)) != \
+        build.source_hash(flags)
+
+
+def _replay_ring(ops, nlev, stages):
+    """Replays a ring schedule (`cuda_cloudsc.ring_schedule`'s form) and
+    returns the faults found: a stage overwritten before the last read of
+    the level it holds, a read of a level the stage does not hold or whose
+    copy group is not complete under the waits so far, a group that does
+    not hold its own level, a level not copied or not read."""
+    faults = []
+    groups, open_copies, complete, holds = [], [], 0, {}
+    last_read = {op[1]: i for i, op in enumerate(ops) if op[0] == "read"}
+    for i, op in enumerate(ops):
+        if op[0] == "copy":
+            _, lev, s = op
+            if s != lev % stages:
+                faults.append(f"level {lev} copied to stage {s}")
+            if s in holds and last_read.get(holds[s][0], -1) > i:
+                faults.append(f"stage {s} overwritten by level {lev} before "
+                              f"the last read of level {holds[s][0]}")
+            holds[s] = (lev, len(groups))
+            open_copies.append(lev)
+        elif op[0] == "commit":
+            groups.append(open_copies)
+            open_copies = []
+        elif op[0] == "wait":
+            complete = max(complete, len(groups) - op[1])
+        elif op[0] == "read":
+            _, lev, s = op
+            if s not in holds or holds[s][0] != lev:
+                faults.append(f"level {lev} read from stage {s}, which holds "
+                              f"{holds.get(s)}")
+            elif holds[s][1] >= complete:
+                faults.append(f"level {lev} read before its group completed")
+    for g, levs in enumerate(groups):
+        if levs != ([g] if g <= nlev else []):
+            faults.append(f"group {g} holds levels {levs}")
+    if open_copies:
+        faults.append("copies never committed")
+    if set(last_read) != set(range(nlev + 1)):
+        faults.append("not every level is read")
+    return faults
+
+
+@pytest.mark.parametrize("nlev", [137, 5])
+@pytest.mark.parametrize("stages", sorted({3, 4, 5, cc.RING.stages}))
+def test_ring_schedule_is_safe(nlev, stages):
+    """Under wait_group(S-2) levels k and k+1 are complete when level k
+    reads them, and no stage is overwritten before its last reader; S-2
+    later levels stay in flight while level k computes."""
+    ops = cc.ring_schedule(nlev, stages)
+    assert _replay_ring(ops, nlev, stages) == []
+    assert sum(op[0] == "copy" for op in ops) == nlev + 1
+    assert {op[1] for op in ops if op[0] == "wait"} == {stages - 2, 0}
+    # copied by the time level k reads its rows: levels up to k+S-1
+    k = nlev // 2
+    i = ops.index(("read", k + 1, (k + 1) % stages),
+                  ops.index(("read", k, k % stages)) + 1)
+    copied = [op[1] for op in ops[:i] if op[0] == "copy"]
+    assert max(copied) == min(k + stages - 1, nlev)
+
+
+def test_ring_replay_finds_faults():
+    """The replay has teeth: a wait one group short, a copy one level too
+    far ahead, and a read from the wrong stage are each found."""
+    nlev, stages = 7, 4
+    ops = cc.ring_schedule(nlev, stages)
+    short = [("wait", stages - 1) if op == ("wait", stages - 2) else op
+             for op in ops]
+    assert any("before its group" in f
+               for f in _replay_ring(short, nlev, stages))
+    ahead = []
+    for op in ops:
+        if op[0] == "copy" and op[1] >= stages - 1:
+            op = ("copy", op[1] + 1, (op[1] + 1) % stages)
+        ahead.append(op)
+    assert any("overwritten" in f for f in _replay_ring(ahead, nlev, stages))
+    wrong = [("read", op[1], (op[2] + 1) % stages) if op[0] == "read" else op
+             for op in ops]
+    assert any("which holds" in f for f in _replay_ring(wrong, nlev, stages))

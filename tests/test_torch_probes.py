@@ -256,7 +256,7 @@ def _run(args):
                           capture_output=True, text=True, timeout=120)
 
 
-LAB = ["kernel_lab", "overlap_probe", "dma_probe"]
+LAB = ["kernel_lab", "overlap_probe", "dma_probe", "ring_sweep"]
 
 
 @pytest.mark.parametrize("name", LAB)
