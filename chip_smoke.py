@@ -8,11 +8,13 @@ the recorded numbers). It imports neither JAX nor the JAX package
 failed check (the script then exits non-zero and prints no result):
 
   0. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
-     versions, the kernel build (seconds, ptxas registers and spills), K1's
-     ring geometry and occupancy in each precision (S, BLOCK, MIN_BLOCKS,
-     dynamic shared memory, registers, spills, blocks an SM; the library's
-     geometry must be `cuda_cloudsc.RING`), and about a second of streaming
-     to bring the clocks up;
+     versions, the kernel builds, all started together (the default
+     library, and K1 alone for each scheme version of VERSION_CASES; seconds,
+     ptxas registers and spills), K1's ring geometry and occupancy in each
+     precision and build (S, BLOCK, MIN_BLOCKS, dynamic shared memory,
+     registers, spills, blocks an SM; the library's geometry must be
+     `cuda_cloudsc.RING`, every build at least one block an SM), and about
+     a second of streaming to bring the clocks up;
   1. the fused kernel against its plain PyTorch version on the main path's
      own pack (`CloudscDriver.prepare`: activity-sorted grouped columns,
      163,840 columns x 137 levels), fp64 (errsum/refsum < FP64_TOL per
@@ -28,16 +30,31 @@ failed check (the script then exits non-zero and prints no result):
      times;
   1c. the copy probe (K3) against x * 1.0000001, contig32...4096, strided
      and tilemajor at the lab's default size, bitwise, and their GB/s;
+  1d. K1's scheme versions (`data.synthetic.VERSION_CASES`: the four single
+     alternates of the reference configuration and the aerosol build, each
+     on the input that takes its branch) at 163,840 columns, fp64 and fp32:
+     each version's main path (`CloudscDriver(scheme_config=...).run`) with
+     the per-version launch counts reset just before and read just after;
+     then on the driver's pack the build against its plain version, bit for
+     bit on all 21 fields, its time and the plain version's, and its
+     outputs against the reference configuration's build on the same input,
+     which must differ (that build's time there is printed beside);
   2. the main path in fp32 (`python -m cloudsc_tpu_torch 1 163840 128`'s
-     driver calls): launch counts reset just before, read just after; the
-     perf table; validation against the reference within test_golden's
-     FP32_TOL per field;
-  3. the main path in fp64 at the same size: every field within FP64_TOL,
-     and no field's MaxRelErr (the validation table's errsum/refsum) above
-     the larger of the 10*eps flag bar and the JAX package's own fp64
-     engine's reading of that field at this size (JAX_FP64_RELERR): a
-     `!!!!` flag is accepted only where the reference engine carries one at
-     least as large;
+     driver calls, outputs left on the card): launch counts reset just
+     before, read just after; the perf table; validation on the card
+     (`validate.device_field_norms` against the reference expanded there)
+     within test_golden's FP32_TOL per field;
+  3. the main path in fp64 at the same size, validated on the card: every
+     field within FP64_TOL, and no field's MaxRelErr (the validation
+     table's errsum/refsum) above the larger of the 10*eps flag bar and the
+     JAX package's own fp64 engine's reading of that field at this size
+     (JAX_FP64_RELERR): a `!!!!` flag is accepted only where the reference
+     engine carries one at least as large; then the fields fetched once and
+     validated on the host, whose norms must equal the card's within
+     NORMS_RTOL per field and statistic;
+  3s. the eager scan engine (`CloudscDriver(backend="scan")`) in fp64 at the
+     same size, validated on the card under the same bars; it launches no
+     kernel (every count unchanged);
   4. timing lines, each with the card's name and power limit, printed
      after phase 5;
   5. the measurement lab's path, through its entry points
@@ -102,6 +119,9 @@ K1_FLOP_PER_COLUMN = 12482329 / 100
 INIT_FLOP_PER_LEVEL = 81
 # a column count that is neither a multiple of K1's block nor of 4
 RAGGED_NCOL = 16387
+# the card's validation norms against the host's, relative, per field and
+# statistic (the two reduce in fp64 in another order)
+NORMS_RTOL = 1e-12
 
 
 def bound(nbytes: float, flops: float, tag: str = "fp32"):
@@ -123,7 +143,27 @@ def _relerr(got, want) -> float:
     return float(errsum / refsum if refsum > 0 else errsum)
 
 
-def phase0_environment():
+def scheme_versions(inp, params) -> dict:
+    """VERSION_CASES name -> the KernelVersion its configuration runs."""
+    import torch
+
+    from cloudsc_tpu_torch.data import synthetic
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.physics import scheme
+
+    out = {}
+    for name in synthetic.VERSION_CASES:
+        vinp, vparams, cfg = synthetic.version_case(name, inp, params)
+        out[name] = cc.kernel_version(scheme.derived_consts(
+            vparams, vinp.ptsphy, torch.float32, cfg))
+    return out
+
+
+def phase0_environment(versions):
+    """Returns (card, {version name: {"f32"|"f64": (registers, spill store
+    bytes, blocks an SM)}}) for the default build and each of `versions`."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from cloudsc_tpu_torch.bench.timing import card as query_card
@@ -136,34 +176,50 @@ def phase0_environment():
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout
     print(f"nvcc: {nvcc.strip().splitlines()[-1]}")
-    build.load_library()
-    info = build.BUILD_INFO
+    # every build at once: each runs one nvcc a source, all in parallel
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1 + len(versions)) as ex:
+        jobs = {"default": ex.submit(build.build)}
+        jobs.update({name: ex.submit(build.build, False, version=v)
+                     for name, v in versions.items()})
+        paths = {name: job.result() for name, job in jobs.items()}
+    print(f"builds: {len(paths)} libraries in "
+          f"{time.perf_counter() - t0:.2f} s")
+    info = dict(build.BUILD_INFO)  # the default build's own report
     print(f"build: {info['seconds']:.2f} s (cached={info['cached']})")
     for line in build.ptxas_summary(info["ptxas"]):
         print(f"ptxas {line}")
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
 
     g = cc.RING
-    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
-        occ = cc.occupancy(dtype)
-        if (occ["stages"], occ["block"], occ["min_blocks"]) != \
-                (g.stages, g.block, g.min_blocks) \
-                or occ["blocks_per_sm"] < 1:
-            raise RuntimeError(f"K1 {name}: the library runs {occ}, RING is "
-                               f"{g}")
-        r = info["ptxas"][f"fused_{name}"]
-        print(f"K1 {name}: S={occ['stages']}, BLOCK={occ['block']}, "
-              f"MIN_BLOCKS={occ['min_blocks']}, dynamic shared memory {occ['smem_bytes']} B a block; "
-              f"{r['registers']} registers, {r['spill_stores']} B spill "
-              f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
-              f"stack (ptxas); {occ['blocks_per_sm']} blocks an SM "
-              f"({occ['blocks_per_sm'] * occ['block'] // 32} warps)")
+    resources = {}
+    for vname, path in paths.items():
+        ptxas = build.parse_ptxas((path.parent / "ptxas.log").read_text())
+        lib = build.load_library(version=versions.get(vname))
+        resources[vname] = {}
+        for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            occ = cc.occupancy(dtype, lib)
+            if (occ["stages"], occ["block"], occ["min_blocks"]) != \
+                    (g.stages, g.block, g.min_blocks) \
+                    or occ["blocks_per_sm"] < 1:
+                raise RuntimeError(f"K1 {vname} {name}: the library runs "
+                                   f"{occ}, RING is {g}")
+            r = ptxas[f"fused_{name}"]
+            resources[vname][name] = (r["registers"], r["spill_stores"],
+                                      occ["blocks_per_sm"])
+            print(f"K1 {vname} {name}: S={occ['stages']}, BLOCK={occ['block']}, "
+                  f"MIN_BLOCKS={occ['min_blocks']}, dynamic shared memory "
+                  f"{occ['smem_bytes']} B a block; "
+                  f"{r['registers']} registers, {r['spill_stores']} B spill "
+                  f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
+                  f"stack (ptxas); {occ['blocks_per_sm']} blocks an SM "
+                  f"({occ['blocks_per_sm'] * occ['block'] // 32} warps)")
     # bring the clocks up before anything is timed (~1 s of streaming)
     x = torch.ones(1 << 28, device="cuda")
     for _ in range(1000):
         x.mul_(1.0)
     torch.cuda.synchronize()
-    return card
+    return card, resources
 
 
 def _event_ms(fn, iterations):
@@ -424,6 +480,100 @@ def phase1c_copy_probe():
     return results
 
 
+def _k1_bytes(p) -> int:
+    """Modeled bytes K1 must move on pack `p`: the pack (every row of its
+    build) and col in, the three output buffers out, each once."""
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+
+    return (p.pack.numel() + p.col.numel()
+            + p.nlev * len(cc.OLEV_ROWS) * p.ncol
+            + (p.nlev + 1) * len(cc.OHALF_ROWS) * p.ncol
+            + p.ncol) * p.pack.element_size()
+
+
+def phase1d_versions(inp, params, versions):
+    """Each scheme version of VERSION_CASES at NGPTOT columns, fp64 and
+    fp32: its main path with the per-version counts reset and read, then
+    its build against its plain version on the driver's pack (bit for bit
+    on all 21 fields) and against the reference configuration's build on
+    the same input (must differ; that build is timed there too). Returns
+    {name: {tag: record}}."""
+    import torch
+
+    from cloudsc_tpu_torch.data import synthetic
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.physics import scheme
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    results = {}
+    for name, v in versions.items():
+        vinp, vparams, cfg = synthetic.version_case(name, inp, params)
+        results[name] = {}
+        for dtype in (torch.float64, torch.float32):
+            tag = "fp64" if dtype == torch.float64 else "fp32"
+            driver = CloudscDriver(vparams, vinp.ptsphy, dtype=dtype,
+                                   device="cuda", scheme_config=cfg)
+            c, consts = driver.step.c, driver.step.consts
+            if cc.kernel_version(c) != v:
+                raise RuntimeError(f"{name}: runs {cc.kernel_version(c)}")
+            cc.VERSION_LAUNCHES.clear()
+            out, timings, _ = driver.run(vinp, iterations=ITERATIONS,
+                                         fetch_outputs=False)
+            launches = dict(cc.VERSION_LAUNCHES)
+            if launches != {v: 1 + ITERATIONS}:
+                raise RuntimeError(f"{name} {tag} main path: launches "
+                                   f"{launches}, expected {1 + ITERATIONS} "
+                                   f"of {v}")
+            if not all(bool(torch.isfinite(a).all()) for a in out):
+                raise RuntimeError(f"{name} {tag}: non-finite outputs")
+            del out
+            p = driver.prepare(vinp).to("cuda")
+            got = cc.cloudsc_fused(p, c, consts)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = cc.cloudsc_fused_plain(p, c)
+            stop.record()
+            stop.synchronize()
+            plain_ms = start.elapsed_time(stop)
+            got_a, want_a = cc.assemble(got, p, c), cc.assemble(want, p, c)
+            max_abs = _check_fields(f"{name} {tag}", got_a, want_a)
+            if max_abs != 0.0 or not all(torch.equal(a, b)
+                                         for a, b in zip(got, want)):
+                raise RuntimeError(f"{name} {tag}: kernel not bitwise equal "
+                                   f"to the plain version (max abs err "
+                                   f"{max_abs:.3e})")
+            del want, want_a
+            ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
+            # the reference configuration's build on the same input and
+            # column order
+            c0 = scheme.derived_consts(params, vinp.ptsphy, dtype)
+            p0 = cc.pack_inputs_folded(vinp, params, None, dtype,
+                                       driver._group_perm).to("cuda")
+            base = cc.assemble(cc.cloudsc_fused(p0, c0), p0, c0)
+            changed = [f for f in base._fields
+                       if not torch.equal(getattr(got_a, f), getattr(base, f))]
+            if not changed:
+                raise RuntimeError(f"{name} {tag}: outputs equal the "
+                                   f"reference configuration's build's")
+            c0_consts = cc.const_vector(c0, "cuda")
+            ref_ms = _event_ms(lambda: cc.cloudsc_fused(p0, c0, c0_consts),
+                               ITERATIONS)
+            nbytes = _k1_bytes(p)
+            results[name][tag] = dict(
+                launches=launches[v], max_abs=max_abs, ms=ms, ref_ms=ref_ms,
+                plain_ms=plain_ms, driver_ms=timings.compute_s * 1e3,
+                rows=len(p.rows),
+                bound=bound(nbytes, K1_FLOP_PER_COLUMN * NGPTOT, tag))
+            print(f"phase 1d {name} {tag} ({len(p.rows)} rows): kernel == "
+                  f"plain version bit for bit on all 21 fields; main-path "
+                  f"launches {launches[v]}; {len(changed)} of 21 fields "
+                  f"differ from the reference configuration's build")
+            del p, p0, got, got_a, base
+            torch.cuda.empty_cache()
+    return results
+
+
 def phase5_lab_path():
     """The lab's entry points at their defaults (overlap with all five
     variants); every lab kernel's count reset just before and read just
@@ -452,16 +602,69 @@ def phase5_lab_path():
     return counts
 
 
-def phase_main_path(inp, params, dtype, ref):
-    """The main path's driver calls; returns (launches, timings, wall s of
-    driver.run)."""
+def _card_validation(tag, out, ref_dev):
+    """The outputs' shapes and finiteness, then the validation table from
+    the norms reduced on the card; returns (FieldErrors, seconds)."""
     import numpy as np
     import torch
 
-    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
-    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
     from cloudsc_tpu_torch.validate import FIELD_ATTR, REF_DATASET, \
-        VALIDATION_ORDER, validate_outputs
+        VALIDATION_ORDER, device_field_norms, validate_from_norms
+
+    for name, _ in VALIDATION_ORDER:
+        a = getattr(out, FIELD_ATTR[name])
+        if a.shape != ref_dev[REF_DATASET[name]].shape \
+                or not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"{tag} {name}: wrong shape or non-finite")
+    t0 = time.perf_counter()
+    norms = device_field_norms(out, ref_dev).cpu().numpy()
+    validate_s = time.perf_counter() - t0
+    eps = float(np.finfo(np.float64 if tag.endswith("fp64")
+                         else np.float32).eps)
+    return validate_from_norms(norms, NGPTOT, work_eps=eps), validate_s
+
+
+def _check_bars(tag, errs):
+    """test_golden's bars on the validation table (fp64: FP64_TOL and the
+    JAX engine's reading; fp32: FP32_TOL); returns the flagged fields."""
+    bad = {}
+    for e in errs:
+        err = e.errsum / e.refsum if e.refsum > 0 else e.errsum
+        # test_golden's comparisons: fp64 err < FP64_TOL, fp32 err <= tol
+        if tag.endswith("fp64"):
+            over = not err < FP64_TOL
+        else:
+            over = err > FP32_TOL.get(e.name, FP32_TOL_DEFAULT)
+        if over:
+            bad[e.name] = err
+    if bad:
+        raise RuntimeError(f"{tag} over tolerance: {bad}")
+    flagged = {e.name: e.relerr for e in errs if e.flagged}
+    if tag.endswith("fp64"):
+        over = over_jax_reading(errs)
+        if over:
+            raise RuntimeError(f"{tag}: MaxRelErr above both the flag bar "
+                               f"and the JAX engine's reading: {over}")
+        print(f"{tag}: every field's MaxRelErr within max(10*eps, JAX "
+              f"engine's reading); flagged "
+              + ", ".join(f"{n} {v:.3e} (JAX {JAX_FP64_RELERR[n]:.3e})"
+                          for n, v in flagged.items()))
+    return flagged
+
+
+def phase_main_path(inp, params, dtype, ref_dev):
+    """The main path's driver calls, outputs left on the card and validated
+    there; in fp64 also fetched once and validated on the host, whose norms
+    must equal the card's. Returns (launches, timings, wall s of
+    driver.run, card validation s, host validation s or None)."""
+    import numpy as np
+    import torch
+
+    from cloudsc_tpu_torch import data
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.physics.cloudsc import CloudscOutputs
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+    from cloudsc_tpu_torch.validate import validate_outputs
 
     tag = "fp64" if dtype == torch.float64 else "fp32"
     driver = CloudscDriver(params, inp.ptsphy, dtype=dtype, device="cuda")
@@ -470,7 +673,9 @@ def phase_main_path(inp, params, dtype, ref):
           f"NGPBLKS={ngpblks}")
     cc.LAUNCHES = 0
     t0 = time.perf_counter()
-    out, timings, timer = driver.run(inp, iterations=ITERATIONS)
+    out, timings, timer = driver.run(inp, iterations=ITERATIONS,
+                                     fetch_outputs=False)
+    torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = cc.LAUNCHES
     if launches != 1 + ITERATIONS:
@@ -481,47 +686,79 @@ def phase_main_path(inp, params, dtype, ref):
     print(f" device compute: {timings.compute_s * 1e3:9.3f} ms | h2d:"
           f" {timings.h2d_s * 1e3:9.3f} ms | d2h: {timings.d2h_s * 1e3:9.3f}"
           f" ms | compile: {timings.compile_s:7.3f} s")
-    for name, _ in VALIDATION_ORDER:
-        a = np.asarray(getattr(out, FIELD_ATTR[name]))
-        if a.shape != ref[REF_DATASET[name]].shape or not np.isfinite(a).all():
-            raise RuntimeError(f"{tag} {name}: wrong shape or non-finite")
-    t0 = time.perf_counter()
-    errs = validate_outputs(out, ref, ngptotg=NGPTOT)
-    validate_s = time.perf_counter() - t0
+    errs, validate_s = _card_validation(f"main path {tag}", out, ref_dev)
+    host_validate_s = None
+    if tag == "fp64":
+        t0 = time.perf_counter()
+        host_out = CloudscOutputs(*(a.cpu().numpy() for a in out))
+        fetch_s = time.perf_counter() - t0
+        ref = data.load_reference(data.default_reference_path(), NGPTOT)
+        t0 = time.perf_counter()
+        host_errs = validate_outputs(host_out, ref, ngptotg=NGPTOT,
+                                     print_table=False)
+        host_validate_s = time.perf_counter() - t0
+        del host_out, ref
+        card = np.array([[e.minval, e.maxval, e.maxerr, e.errsum, e.refsum]
+                         for e in errs])
+        host = np.array([[e.minval, e.maxval, e.maxerr, e.errsum, e.refsum]
+                         for e in host_errs])
+        worst = float(np.max(np.abs(card - host)
+                             / np.maximum(np.abs(host), 1e-300)))
+        if not np.allclose(card, host, rtol=NORMS_RTOL, atol=0.0):
+            raise RuntimeError(f"fp64 main path: card norms differ from the "
+                               f"host's by {worst:.3e} relative")
+        print(f"phase main path fp64: the card's norms equal the host's "
+              f"(validate_outputs on the fetched fields) within "
+              f"{NORMS_RTOL:g} relative, worst {worst:.3e}; fetch "
+              f"{fetch_s:.3f} s, host validation {host_validate_s:.3f} s")
     # the rest of driver.run: host pack, assemble + foldo, ungroup
     host_s = run_s - (timings.h2d_s + timings.compile_s
-                      + timings.compute_s * ITERATIONS + timings.d2h_s)
+                      + timings.compute_s * ITERATIONS)
     print(f"main path {tag} wall: run {run_s:.3f} s = host pack + assemble + "
           f"ungroup {host_s:.3f} s + h2d {timings.h2d_s:.3f} s + warm-up "
           f"{timings.compile_s:.3f} s + {ITERATIONS} x kernel "
-          f"{timings.compute_s:.5f} s + d2h {timings.d2h_s:.3f} s; "
-          f"validation {validate_s:.3f} s")
-    bad = {}
-    for e in errs:
-        err = e.errsum / e.refsum if e.refsum > 0 else e.errsum
-        # test_golden's comparisons: fp64 err < FP64_TOL, fp32 err <= tol
-        if tag == "fp64":
-            over = not err < FP64_TOL
-        else:
-            over = err > FP32_TOL.get(e.name, FP32_TOL_DEFAULT)
-        if over:
-            bad[e.name] = err
-    if bad:
-        raise RuntimeError(f"{tag} main path over tolerance: {bad}")
-    flagged = {e.name: e.relerr for e in errs if e.flagged}
-    if tag == "fp64":
-        over = over_jax_reading(errs)
-        if over:
-            raise RuntimeError(f"fp64 main path: MaxRelErr above both the "
-                               f"flag bar and the JAX engine's reading: {over}")
-        print(f"phase main path fp64: every field's MaxRelErr within "
-              f"max(10*eps, JAX engine's reading); flagged "
-              + ", ".join(f"{n} {v:.3e} (JAX {JAX_FP64_RELERR[n]:.3e})"
-                          for n, v in flagged.items()))
+          f"{timings.compute_s:.5f} s (no d2h: outputs stay on the card); "
+          f"validation on the card {validate_s:.3f} s")
+    flagged = _check_bars(f"phase main path {tag}", errs)
     print(f"phase main path {tag}: 21 fields within "
-          f"{'FP64_TOL' if tag == 'fp64' else 'FP32_TOL'}, "
-          f"{launches} launches, flagged {sorted(flagged)}")
-    return launches, timings, run_s
+          f"{'FP64_TOL' if tag == 'fp64' else 'FP32_TOL'}, validated on the "
+          f"card, {launches} launches, flagged {sorted(flagged)}")
+    return launches, timings, run_s, validate_s, host_validate_s
+
+
+def phase_scan(inp, params, ref_dev):
+    """The eager scan engine in fp64 at NGPTOT columns, validated on the
+    card under the fp64 bars; no kernel count may move. Returns
+    (timings, wall s of driver.run)."""
+    import torch
+
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                           device="cuda", backend="scan", nproma=NPROMA)
+
+    def counts():
+        return (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES,
+                dict(cc.VERSION_LAUNCHES))
+
+    before = counts()
+    t0 = time.perf_counter()
+    out, timings, _ = driver.run(inp, iterations=1, fetch_outputs=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if counts() != before:
+        raise RuntimeError(f"the scan engine moved a kernel count: {before} "
+                           f"-> {counts()}")
+    errs, validate_s = _card_validation("scan fp64", out, ref_dev)
+    del out
+    flagged = _check_bars("phase scan fp64", errs)
+    print(f"phase scan fp64: 21 fields within FP64_TOL, validated on the "
+          f"card in {validate_s:.3f} s, no kernel launched, flagged "
+          f"{sorted(flagged)}; step {timings.compute_s * 1e3:.1f} ms, "
+          f"warm-up step {timings.compile_s:.3f} s, h2d {timings.h2d_s:.3f} "
+          f"s, driver.run {run_s:.3f} s")
+    return timings, run_s
 
 
 def over_jax_reading(errs) -> dict:
@@ -541,26 +778,37 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cloudsc_tpu_torch import data
     from cloudsc_tpu_torch.params import Params
+    from cloudsc_tpu_torch.validate import reference_on_device
 
     t_start = time.perf_counter()
-    card = phase0_environment()
     inp = data.load_input(data.default_input_path(), NGPTOT)
     params = Params.from_input(inp)
-    ref = data.load_reference(data.default_reference_path(), NGPTOT)
+    versions = scheme_versions(inp, params)
+    card, resources = phase0_environment(versions)
 
     k = phase1_kernel_vs_plain(inp, params)
     diag, diag_bytes = phase1a_diagnostic_bodies(inp, params)
     phase1_ragged(params)
+    vk = phase1d_versions(inp, params, versions)
     k2_err, k2_times, (k2_ms, k2_plain_ms, k2_bound) = phase1b_overlap_probe()
     k3 = phase1c_copy_probe()
-    launches, t32, run32 = phase_main_path(inp, params, torch.float32, ref)
-    _, t64, run64 = phase_main_path(inp, params, torch.float64, ref)
+    ref_dev = reference_on_device(data.default_reference_path(), NGPTOT,
+                                  "cuda")
+    launches, t32, run32, val32, _ = phase_main_path(inp, params,
+                                                     torch.float32, ref_dev)
+    _, t64, run64, val64, host_val64 = phase_main_path(inp, params,
+                                                       torch.float64, ref_dev)
+    torch.cuda.empty_cache()
+    t_scan, run_scan = phase_scan(inp, params, ref_dev)
+    del ref_dev
+    torch.cuda.empty_cache()
     lab_counts = phase5_lab_path()
 
     nlev = inp.klev
     k1_bound = {tag: bound(k[tag][3], K1_FLOP_PER_COLUMN * NGPTOT, tag)
                 for tag in ("fp32", "fp64")}
-    for tag, t, run_s in (("fp32", t32, run32), ("fp64", t64, run64)):
+    for tag, t, run_s, val_s in (("fp32", t32, run32, val32),
+                                 ("fp64", t64, run64, val64)):
         max_abs, ms, plain_ms, nbytes = k[tag]
         gbs = nbytes / (ms * 1e-3) / 1e9
         busy_s = (1 + ITERATIONS) * t.compute_s
@@ -574,10 +822,30 @@ def main() -> int:
               f"{bound_ms / ms:.3f} of the kernel's time; driver loop "
               f"{t.compute_s * 1e3:.4f} ms/step; plain version "
               f"{plain_ms:.1f} ms/step (1 call); h2d {t.h2d_s * 1e3:.1f} ms; "
-              f"d2h {t.d2h_s * 1e3:.1f} ms; warm-up {t.compile_s:.2f} s; "
+              f"no d2h; warm-up {t.compile_s:.2f} s; "
               f"kernel busy {busy_s:.4f} s of driver.run {run_s:.3f} s "
               f"(host wall clock, no trace) = idle share "
-              f"{1 - busy_s / run_s:.4f}")
+              f"{1 - busy_s / run_s:.4f}; validation on the card "
+              f"{val_s:.3f} s"
+              + (f", on the host {host_val64:.3f} s" if tag == "fp64" else ""))
+    print(f"timing scan fp64 [{card}]: {t_scan.compute_s * 1e3:.1f} ms/step "
+          f"(CUDA events over 1 step after a warm-up step of "
+          f"{t_scan.compile_s:.3f} s); h2d {t_scan.h2d_s:.3f} s; driver.run "
+          f"{run_scan:.3f} s")
+    for name, rec in vk.items():
+        for tag in ("fp32", "fp64"):
+            r = rec[tag]
+            regs, spill, blocks = resources[name][tag.replace("fp", "f")]
+            print(f"timing K1 {name} {tag} [{card}]: {r['ms']:.4f} ms/step "
+                  f"(CUDA events over {ITERATIONS} launches on the driver's "
+                  f"pack; driver loop {r['driver_ms']:.4f} ms), the reference "
+                  f"configuration's build on the same input {r['ref_ms']:.4f} "
+                  f"ms ({r['ms'] / r['ref_ms'] - 1:+.1%}), plain version "
+                  f"{r['plain_ms']:.1f} ms (1 call); bound "
+                  f"{r['bound'][0]:.4f} ms (by {r['bound'][1]}, {r['rows']} "
+                  f"rows) = {r['bound'][0] / r['ms']:.3f} of the kernel's "
+                  f"time; {regs} registers, {spill} B spill stores, {blocks} "
+                  f"blocks an SM")
     for tag in ("fp32", "fp64"):
         full, init, floor = (diag[(m, tag)][1] for m in ("full", "init",
                                                          "floor"))
@@ -645,6 +913,20 @@ def main() -> int:
         "bound_by": bound_by,
         # the plain version is one PyTorch call, x * 1.0000001
         "library_ms": plain_ms})
+    # K1's scheme-version builds: fp32 in the common keys, fp64 beside
+    for name, rec in vk.items():
+        r32, r64 = rec["fp32"], rec["fp64"]
+        entries.append({
+            "name": f"cloudsc_fused[{name}]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+            "launches": r32["launches"],
+            "max_abs_err": max(r32["max_abs"], r64["max_abs"]),
+            "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+            "bound_ms": r32["bound"][0], "bound_by": r32["bound"][1],
+            "library_ms": None,
+            "fp64": {"launches": r64["launches"], "ms": r64["ms"],
+                     "plain_ms": r64["plain_ms"], "bound_ms": r64["bound"][0],
+                     "bound_by": r64["bound"][1]}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

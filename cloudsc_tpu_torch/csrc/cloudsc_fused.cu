@@ -4,7 +4,10 @@
 // pl.pallas_call(_kernel) (body: _kernel, _sub_level, _write_level_rows and
 // scheme.level_init / scheme.level_step), on the main path's contract: the
 // folded input pack with the streamed ZDQS row, the four derivable flux rows
-// folded out of the outputs, SchemeConfig (2, 2, 1, 1), no aerosol rows.
+// folded out of the outputs. One library holds one scheme version, named by
+// the CLOUDSC_* macros of cloudsc_scheme.cuh (SchemeConfig's four switches
+// and the aerosol couplings, whose 0-5 extra pack rows the ring streams
+// beside the 19 of the reference configuration).
 //
 // Schedule: the reference's own k-caching schedule. One thread owns one
 // column and integrates it top-down through all levels; the 33 cross-level
@@ -31,7 +34,7 @@
 // double-buffers each grid step's block of lps levels, plus a lookahead
 // block for the k+1 rows, so the next levels arrive in VMEM while the
 // current ones compute (pallas_cloudsc.py:847-876). Here each thread runs
-// its own pipeline: a ring of S stages of the 19 input rows in dynamic
+// its own pipeline: a ring of S stages of the R_COUNT input rows in dynamic
 // shared memory, laid out [S][R_COUNT][BLOCK] so a warp's copies land on
 // consecutive words. The thread copies level k+S-1 of its own column with
 // cp.async (4 or 8 bytes, no registers held while in flight) and commits one
@@ -44,9 +47,10 @@
 // precisions (S, BLOCK and the launch bound's blocks an SM), chosen by
 // bench/ring_sweep.py, and kernels/build.py passes it here as the
 // CLOUDSC_RING_* macros. Holding no loads in registers, the kernel needs
-// 128 (fp32) / 236 (fp64) registers and spills nothing, 16 / 8 warps an SM
-// on an H100; the stream then hides under the compute, and the body's own
-// instruction stream sets the pace.
+// 128 (fp32) / 236 (fp64) registers in the reference configuration's build
+// (125-134 / 234-244 in the others, PERF.md) and spills nothing, 16 / 8
+// warps an SM on an H100; the stream then hides under the compute, and the
+// body's own instruction stream sets the pace.
 //
 // Beside it, the TPU kernel's two diagnostic bodies (floor_kernel,
 // init_kernel; see below), which split the step's time into stream and
@@ -215,6 +219,17 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
       x.psnde = P(k, R_PSNDE);
       x.psupsat = P(k, R_PSUPSAT);
       x.zdqs = P(k, R_ZDQS);
+#if CLOUDSC_LAERICESED
+      x.pre_ice = P(k, R_PRE_ICE);
+#endif
+#if CLOUDSC_LAERICEAUTO
+      x.picrit_aer = P(k, R_PICRIT_AER);
+      x.pnice = P(k, R_PNICE);
+#endif
+#if CLOUDSC_AER_LIQ
+      x.plcrit_aer = P(k, R_PLCRIT_AER);
+      x.pccn = P(k, R_PCCN);
+#endif
       x.land = plsm > T(0.5);
       x.ldcum = ldcum;
       x.ktype = ktype;
@@ -359,22 +374,29 @@ init_kernel(const T* __restrict__ pack, const T* __restrict__ col,
 
 // fused_kernel<T> may take more than the default 48 KB of dynamic shared
 // memory. The attribute belongs to the function on each device: it is set
-// once a device, and later calls return that first call's result.
+// once a device and precision, and later calls return that first call's
+// result. The flags have internal linkage: a template's static locals would
+// be one object across every library of the process (GNU unique symbols),
+// and each scheme version's library has a fused_kernel of its own to set.
 constexpr int MAX_DEVICES = 64;
 
+namespace {
+std::once_flag configured[2][MAX_DEVICES];
+cudaError_t configure_result[2][MAX_DEVICES];
+}  // namespace
+
 template <typename T> cudaError_t configure_fused() {
-  static std::once_flag once[MAX_DEVICES];
-  static cudaError_t result[MAX_DEVICES];
+  constexpr int t = sizeof(T) == sizeof(double);
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  std::call_once(once[dev], [dev] {
-    result[dev] = cudaFuncSetAttribute(
+  std::call_once(configured[t][dev], [dev] {
+    configure_result[t][dev] = cudaFuncSetAttribute(
         fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         ring_bytes<T>());
   });
-  return result[dev];
+  return configure_result[t][dev];
 }
 
 enum Body { FULL, FLOOR, INIT };
@@ -383,6 +405,8 @@ template <typename T, Body B>
 int launch(const T* pack, const T* col, const double* consts, T* o_lev,
            T* o_half, T* o_prainfrac, int nlev, int ncol, int nrows,
            void* stream) {
+  // a pack with another row set belongs to another scheme version's build
+  if (nrows != R_COUNT) return static_cast<int>(cudaErrorInvalidValue);
   if (ncol <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if constexpr (B == FULL) {

@@ -1,16 +1,22 @@
 // CLOUDSC physics for one column and one level, in CUDA C++ for sm_90a.
 //
 // A scalar translation of cloudsc_tpu_torch/physics/scheme.py (itself a
-// line-for-line port of cloudsc_tpu/physics/scheme.py) for the reference
-// configuration (IWARMRAIN=2, IEVAPRAIN=2, IEVAPSNOW=1, IDEPICE=1, no aerosol
-// coupling) on the folded input contract. `ref:` line numbers point to
-// src/cloudsc_fortran/cloudsc.F90 of the reference.
+// line-for-line port of cloudsc_tpu/physics/scheme.py) on the folded input
+// contract, for the scheme version the build names: the SchemeConfig
+// switches IWARMRAIN, IEVAPRAIN, IEVAPSNOW, IDEPICE and the four aerosol
+// couplings arrive as the CLOUDSC_* macros (kernels/build.py from
+// cuda_cloudsc.KernelVersion), and each library holds one version, so no
+// build carries another version's branches in its instruction stream. The
+// reference configuration is (2, 2, 1, 1) without aerosol couplings. `ref:`
+// line numbers point to src/cloudsc_fortran/cloudsc.F90 of the reference.
 //
 // Rounding. Every operation is written in the Python module's order; the
 // build passes -fmad=false so no multiply-add is contracted. Literals are
 // written T(...) so the float instantiation stays in float; scalar-only
 // subexpressions of the Python code arrive precomputed in double in the
 // constants vector (kernels/cuda_cloudsc.py CONST_NAMES), cast once to T.
+// Powers and square roots go through d_pow / d_sqrt, the libdevice calls
+// torch's CUDA `**` and `sqrt` make; `x ** 2` is x * x, as there.
 //
 // Sparsity. The 5x5 source/implicit matrices are dense arrays initialised to
 // zero where the Python code keeps structural zeros as None: adding or
@@ -22,6 +28,22 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#if !defined(CLOUDSC_IWARMRAIN) || !defined(CLOUDSC_IEVAPRAIN) || \
+    !defined(CLOUDSC_IEVAPSNOW) || !defined(CLOUDSC_IDEPICE) ||   \
+    !defined(CLOUDSC_LAERICESED) || !defined(CLOUDSC_LAERICEAUTO) || \
+    !defined(CLOUDSC_LAERLIQAUTOLSP) || !defined(CLOUDSC_LAERLIQCOLL)
+#error "the scheme version comes from kernels/build.py (cuda_cloudsc.KernelVersion)"
+#endif
+#if (CLOUDSC_IWARMRAIN != 1 && CLOUDSC_IWARMRAIN != 2) ||   \
+    (CLOUDSC_IEVAPRAIN != 1 && CLOUDSC_IEVAPRAIN != 2) ||   \
+    (CLOUDSC_IEVAPSNOW != 1 && CLOUDSC_IEVAPSNOW != 2) ||   \
+    (CLOUDSC_IDEPICE != 1 && CLOUDSC_IDEPICE != 2)
+#error "each scheme switch is 1 or 2"
+#endif
+// the liquid couplings live in the Sundqvist warm-rain branch only
+#define CLOUDSC_AER_LIQ \
+  ((CLOUDSC_LAERLIQAUTOLSP || CLOUDSC_LAERLIQCOLL) && CLOUDSC_IWARMRAIN == 1)
 
 namespace cloudsc {
 
@@ -46,15 +68,30 @@ enum Const {
   C_zrdcp_half, C_one_m_ramid, C_snowlin_fac,
   C_kk_pow_land, C_kk_pow_sea, C_fac2_c6r, C_fac2_c4r, C_fac2_c3r,
   C_one_m_rprecrhmax, C_rv_over_rd, C_rg_rpecons,
+  C_rprc1, C_rccn, C_rnice, C_rcl_apb1, C_rcl_apb2, C_rcl_apb3,
+  C_rcl_const1i, C_rcl_const2i, C_rcl_const3i, C_rcl_const4i,
+  C_rcl_const5i, C_rcl_const2s, C_rcl_const3s, C_rcl_const4s,
+  C_rcl_const5s,
+  C_rkconv_dt, C_rg_rpecons_half, C_c065_const6i, C_c065_const6s,
   C_COUNT
 };
 
-// Rows of the folded pack, in the order of PACK_ROWS (+ ZDQS_ROW) in
-// kernels/cuda_cloudsc.py.
+// Rows of the folded pack, in the order of pack_rows(True, aer_rows(c)) in
+// kernels/cuda_cloudsc.py: PACK_ROWS, the ZDQS row, then the aerosol rows
+// the build's couplings read.
 enum Row {
   R_PMF, R_PLU, R_PAPH, R_ZTP1_IN, R_ZQV_IN, R_ZA_IN, R_PAP, R_PVERVEL,
   R_ZHR, R_PLUDE, R_PSNDE, R_PSUPSAT, R_PVFL, R_PVFI,
   R_ZQX0_IN, R_ZQX1_IN, R_ZQX2_IN, R_ZQX3_IN, R_ZDQS,
+#if CLOUDSC_LAERICESED
+  R_PRE_ICE,
+#endif
+#if CLOUDSC_LAERICEAUTO
+  R_PICRIT_AER, R_PNICE,
+#endif
+#if CLOUDSC_AER_LIQ
+  R_PLCRIT_AER, R_PCCN,
+#endif
   R_COUNT
 };
 
@@ -192,6 +229,9 @@ template <typename T> struct Carry {
 template <typename T> struct LevelX {
   T ztp1_prev, za_prev, pap, pap_prev, paph, paph_next, paph_surf;
   T pmf, pmf_next, plu_next, pvervel, zhr, plude_in, psnde, psupsat, zdqs;
+  // the aerosol rows; each is set and read only in a build whose couplings
+  // read it
+  T pre_ice, picrit_aer, pnice, plcrit_aer, pccn;
   bool land, ldcum, not_first, not_last;
   int ktype;
 };
@@ -470,7 +510,13 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
   for (int m = II; m <= IS; ++m) {
     fallsrce[m] = not_first ? cr.pfplsx[m] * zdtgdp : Z;
     sqa[m][m] = sqa[m][m] + fallsrce[m];
-    const T vq = m == II ? K[C_rvice] : (m == IR ? K[C_rvrain] : K[C_rvsnow]);
+#if CLOUDSC_LAERICESED
+    // ice fall speed from the effective radius (ref: 1736-1738)
+    const T vice = T(0.002) * x.pre_ice;
+#else
+    const T vice = K[C_rvice];
+#endif
+    const T vq = m == II ? vice : (m == IR ? K[C_rvrain] : K[C_rvsnow]);
     fallsink[m] = zdtgdp * (vq * zrho);
   }
 
@@ -500,7 +546,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
   for (int m = 0; m < NCLV; ++m) { zqxn[m] = zqx[m]; pf_next[m] = Z; }
 
   if (region_m) {
-    // 3.7 ice deposition, Rotstayn 2001 (ref: 1501-1601)
+    // 3.7 ice deposition (ref: 1501-1689)
     {
       const bool dep_m = (ztp1 < RTT) && (zqxfg[IL] > rlmin);
       const T zvpice = in.zfoeeice * RV / RD;
@@ -508,6 +554,8 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       const T zicenuclei = T(1000.0) *
           d_exp(T(12.96) * (zvpliq - zvpice) / zvpliq - T(0.639));
       const T zinfactor = mn(zicenuclei / T(15000.0), O);
+#if CLOUDSC_IDEPICE == 1
+      // Rotstayn 2001, monodisperse (ref: 1519-1601)
       const T zadd = RLSTT * (RLSTT / (RV * ztp1) - O) / (T(2.4e-2) * ztp1);
       const T zbdd = RV * ztp1 * pap / (T(2.21) * zvpice);
       const T zcvds = T(7.8) * d_pow(zicenuclei / zrho, T(0.666)) *
@@ -516,6 +564,22 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       const T zinew_b = T(0.666) * zcvds * ptsphy + d_pow(zice0, T(0.666));
       const T zinew = zinew_b * d_sqrt(zinew_b);
       T zdepos = mx(za * (zinew - zice0), Z);
+#else
+      // ice-PSD-based deposition (ref: 1608-1689); ZTCG = ZFACX1I = 1
+      const T zice0 = mx(zicecld30, zicenuclei * K[C_riceinit] / zrho);
+      const T zaplusb = K[C_rcl_apb1] * zvpice - K[C_rcl_apb2] * zvpice * ztp1 +
+                        pap * K[C_rcl_apb3] * (ztp1 * ztp1 * ztp1);
+      const T zcorrfac = d_sqrt(O / zrho);
+      const T ztq = ztp1 / T(273.0);
+      const T zcorrfac2 = ztq * d_sqrt(ztq) * (T(393.0) / (ztp1 + T(120.0)));
+      const T zpr02 = zrho * zice0 * K[C_rcl_const1i];
+      const T zterm1 = (zvpliq - zvpice) * sq(ztp1) * zvpice * zcorrfac2 *
+                       K[C_rcl_const2i] / (zrho * zaplusb * zvpice);
+      const T zterm2 = K[C_c065_const6i] * d_pow(zpr02, K[C_rcl_const4i]) +
+                       K[C_rcl_const3i] * d_sqrt(zcorrfac) * d_sqrt(zrho) *
+                           d_pow(zpr02, K[C_rcl_const5i]) / d_sqrt(zcorrfac2);
+      T zdepos = mx(za * zterm1 * zterm2 * ptsphy, Z);
+#endif
       const T ztopred = mn(
           zinfactor + (O - zinfactor) * (K[C_rdepliqrefrate] +
                                          zcldtopdist / K[C_rdepliqrefdepth]),
@@ -564,13 +628,45 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
 
     // 4.3a snow autoconversion, Lin et al. 1983 (ref: 1789-1811)
     {
-      const T zzco = K[C_snowlin_fac] * d_exp(K[C_rsnowlin2] * (ztp1 - RTT));
-      const T zsnowaut = zzco * (O - d_exp(-sq(zicecld / K[C_rlcritsnow])));
+      T zzco = K[C_snowlin_fac] * d_exp(K[C_rsnowlin2] * (ztp1 - RTT));
+#if CLOUDSC_LAERICEAUTO
+      const T zlcrit = x.picrit_aer;
+      zzco = zzco * d_pow(K[C_rnice] / x.pnice, T(0.333));
+#else
+      const T zlcrit = K[C_rlcritsnow];
+#endif
+      const T zsnowaut = zzco * (O - d_exp(-sq(zicecld / zlcrit)));
       sqb[IS][II] = sqb[IS][II] + (snow_m ? zsnowaut : Z);
     }
 
-    // 4.3b warm rain, Khairoutdinov and Kogan 2000 (ref: 1819-1927)
+    // 4.3b warm-rain autoconversion/accretion (ref: 1819-1927)
     {
+#if CLOUDSC_IWARMRAIN == 1
+      // Sundqvist 1989, implicit (ref: 1826-1874)
+      T zzco = K[C_rkconv_dt];
+#if CLOUDSC_LAERLIQAUTOLSP
+      T zlcrit = x.plcrit_aer;
+      zzco = zzco * d_pow(K[C_rccn] / x.pccn, T(0.333));
+#else
+      T zlcrit = x.land ? K[C_rclcrit_land] : K[C_rclcrit_sea];
+#endif
+      const T zprecip = (cr.pfplsx[IS] + cr.pfplsx[IR]) / mx(EPS, zcovptot);
+      const T pr_sqrt = zprecip > Z ? d_sqrt(zprecip) : Z;
+      T zcfpr = O + K[C_rprc1] * pr_sqrt;
+#if CLOUDSC_LAERLIQCOLL
+      zcfpr = zcfpr * d_pow(K[C_rccn] / x.pccn, T(0.333));
+#endif
+      zzco = zzco * zcfpr;
+      zlcrit = zlcrit / mx(zcfpr, EPS);
+      // exp guarded against overflow for large arguments (ref: 1864-1868)
+      const T zarg = zliqcld / zlcrit;
+      const T zrainaut = zarg < T(20.0) ? zzco * (O - d_exp(-(zarg * zarg)))
+                                        : zzco;
+      const bool cold = ztp1 <= RTT;
+      sqb[IS][IL] = sqb[IS][IL] + ((liq_m && cold) ? zrainaut : Z);
+      sqb[IR][IL] = sqb[IR][IL] + ((liq_m && !cold) ? zrainaut : Z);
+#else
+      // Khairoutdinov and Kogan 2000
       const T zconst_pow = x.land ? K[C_kk_pow_land] : K[C_kk_pow_sea];
       const T zlcrit = x.land ? K[C_rclcrit_land] : K[C_rclcrit_sea];
       const bool above = zliqcld > zlcrit;
@@ -594,6 +690,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
         sqa[IL][dst] = sqa[IL][dst] + -(mm ? zrainaut : Z);
         sqa[IL][dst] = sqa[IL][dst] + -(mm ? zrainacc : Z);
       }
+#endif
     }
 
     // riming: snow collects cloud liquid (ref: 1935-1980)
@@ -655,6 +752,29 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       sqa[IS][IR] = sqa[IS][IR] + amt;
       sqa[IR][IS] = sqa[IR][IS] + -amt;
 
+#if CLOUDSC_IEVAPRAIN == 1
+      // 4.5 rain evaporation, Sundqvist (ref: 2121-2184)
+      T zzrh = K[C_rprecrhmax] +
+               K[C_one_m_rprecrhmax] * zcovpmax / mx(EPS, O - za);
+      zzrh = mn(mx(zzrh, K[C_rprecrhmax]), O);
+      T zqe = (zqx[IV] - za * zqsliq) / mx(EPS, O - za);
+      zqe = mx(Z, mn(zqe, zqsliq));
+      const bool llo1 = (zcovpclr > EPS) && (zqxfg[IR] > EPS) &&
+                        (zqe < zzrh * zqsliq);
+      T denom = zcovptot * zdtgdp;
+      denom = sgn(denom) * mx(d_abs(denom), zepsilon);
+      denom = denom == Z ? zepsilon : denom;
+      const T zpreclr = zqxfg[IR] * zcovpclr / denom;
+      const T zbeta1 = d_sqrt(pap / x.paph_surf) / K[C_rvrfactor] * zpreclr /
+                       mx(zcovpclr, EPS);
+      const T b1_pow = zbeta1 > Z ? d_pow(zbeta1, T(0.5777)) : Z;
+      const T zbeta = K[C_rg_rpecons_half] * b1_pow;
+      const T zdenom = O + zbeta * ptsphy * zcorqsliq;
+      const T zdpr = zcovpclr * zbeta * (zqsliq - zqe) / zdenom * zdp * zrg_r;
+      const T zdpevap = zdpr * zdtgdp;
+      const T zevap = mn(zdpevap, zqxfg[IR]);
+#else
+      // 4.5 rain evaporation, Abel and Boutle 2013 (ref: 2190-2279)
       T zzrh = K[C_rprecrhmax] +
                K[C_one_m_rprecrhmax] * zcovpmax / mx(EPS, O - za);
       zzrh = mn(mx(zzrh, K[C_rprecrhmax]), O);
@@ -680,6 +800,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       const T zdenom = O + zbeta * ptsphy;
       const T zdpevap = zcovpclr * zbeta * ptsphy * zsubsat / zdenom;
       const T zevap = mn(zdpevap, zqxfg[IR]);
+#endif
       amt = llo1 ? zevap : Z;
       sqa[IV][IR] = sqa[IV][IR] + amt;
       sqa[IR][IV] = sqa[IR][IV] + -amt;
@@ -690,6 +811,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       zqxfg[IR] = zqxfg[IR] - amt;
     }
 
+#if CLOUDSC_IEVAPSNOW == 1
     // 4.5 snow sublimation, Sundqvist (ref: 2289-2347)
     {
       T zzrh = K[C_rprecrhmax] +
@@ -720,6 +842,47 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
           : zcovptot;
       zqxfg[IS] = zqxfg[IS] - amt;
     }
+#else
+    // 4.5 snow sublimation, PSD-based (ref: 2349-2419); ZTCG = ZFACX1S = 1
+    {
+      T zzrh = K[C_rprecrhmax] +
+               K[C_one_m_rprecrhmax] * zcovpmax / mx(EPS, O - za);
+      zzrh = mn(mx(zzrh, K[C_rprecrhmax]), O);
+      T zqe = (zqx[IV] - za * zqsice) / mx(EPS, O - za);
+      zqe = mx(Z, mn(zqe, zqsice));
+      const bool llo1 = (zcovpclr > EPS) && (zqx[IS] > EPS) &&
+                        (zqe < zzrh * zqsice);
+      const T zpreclr = zqx[IS] / (llo1 ? mx(zcovptot, EPS) : O);
+      const T zvpice2 = in.zfoeeice * RV / RD;
+      const T zaplusb = K[C_rcl_apb1] * zvpice2 -
+                        K[C_rcl_apb2] * zvpice2 * ztp1 +
+                        pap * K[C_rcl_apb3] * (ztp1 * ztp1 * ztp1);
+      const T zcorrfac = d_sqrt(O / zrho);
+      const T ztq = ztp1 / T(273.0);
+      const T zcorrfac2 = ztq * d_sqrt(ztq) * (T(393.0) / (ztp1 + T(120.0)));
+      const T zpr02 = zrho * zpreclr * K[C_rcl_const1s];
+      const T zterm1 = (zqsice - zqe) * sq(ztp1) * zvpice2 * zcorrfac2 *
+                       K[C_rcl_const2s] / (zrho * zaplusb * zqsice);
+      const bool p2_pos = zpr02 > Z;
+      const T pow4 = p2_pos ? d_pow(zpr02, K[C_rcl_const4s]) : Z;
+      const T pow5 = p2_pos ? d_pow(zpr02, K[C_rcl_const5s]) : Z;
+      const T zterm2 = K[C_c065_const6s] * pow4 +
+                       K[C_rcl_const3s] * d_sqrt(zcorrfac) * d_sqrt(zrho) *
+                           pow5 / d_sqrt(zcorrfac2);
+      const T zdpevap = mx(zcovpclr * zterm1 * zterm2 * ptsphy, Z);
+      const T zevaplimice = mx((zqsice - zqx[IV]) / zcorqsice, Z);
+      T zevap = mn(zdpevap, zevaplimice);
+      zevap = mn(zevap, zqx[IS]);
+      const T amt = llo1 ? zevap : Z;
+      sqa[IV][IS] = sqa[IV][IS] + amt;
+      sqa[IS][IV] = sqa[IS][IV] + -amt;
+      zcovptot = llo1
+          ? mx(K[C_rcovpmin],
+               zcovptot - mx(Z, (zcovptot - za) * zevap / zqx[IS]))
+          : zcovptot;
+      zqxfg[IS] = zqxfg[IS] - amt;
+    }
+#endif
 
     // 4.6 evaporate small precipitation amounts (ref: 2426-2435)
 #pragma unroll

@@ -14,12 +14,18 @@ from __future__ import annotations
 import numpy as np
 
 
-def expand_field(field: np.ndarray, ngptot: int) -> np.ndarray:
-    """Tile the trailing (column) axis cyclically out to ngptot columns:
-    dst col j <- src col j % klon (ref: expand_mod.F90:237-334)."""
+def expand_field(field: np.ndarray, ngptot: int,
+                 order: str = "cyclic") -> np.ndarray:
+    """Tile the trailing (column) axis out to ngptot columns. "cyclic":
+    dst col j <- src col j % klon (ref: expand_mod.F90:237-334); "grouped":
+    each source column's copies contiguously, a column permutation of the
+    cyclic layout (`group_inverse` maps back)."""
     klon = field.shape[-1]
     if klon == ngptot:
         return field
+    if order == "grouped":
+        return np.ascontiguousarray(
+            np.repeat(field, group_counts(klon, ngptot), axis=-1))
     reps = -(-ngptot // klon)
     tiled = np.tile(field, (1,) * (field.ndim - 1) + (reps,))
     return np.ascontiguousarray(tiled[..., :ngptot])

@@ -10,7 +10,10 @@ Flags: sm_90a, -O3, C++17, -fmad=false (no multiply-add contraction, so the
 kernels agree with their plain versions to a few ulps; the probes write
 their multiply-adds as explicit fmaf) and no fast math, plus K1's ring
 geometry as -D macros (`cuda_cloudsc.RING`, or another geometry for a
-sweep: `bench/ring_sweep.py`). A failed build raises.
+sweep: `bench/ring_sweep.py`) and K1's scheme version as -D macros
+(`cuda_cloudsc.KernelVersion`). The default build holds every source with
+the reference configuration; another scheme version builds K1's source
+alone into its own directory at first use. A failed build raises.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ ENTRY_POINTS = {
     "copy_probe": [_vp] * 4 + [_i, _i, _ll, _i, _ll, _ll, _i, _vp],
 }
 
-# loaded libraries by (geometry, sources); (None, None) is the default build
+# loaded libraries by (geometry, sources, scheme version); (None, None,
+# None) is the default build
 _libs: dict = {}
 # what the default build (or its cache hit) reported: seconds, ptxas lines,
 # per-kernel registers/spills
@@ -60,20 +64,37 @@ def _nvcc() -> str:
     return nvcc
 
 
-def nvcc_flags(ring=None) -> tuple:
-    """NVCC_FLAGS and K1's ring geometry (a `cuda_cloudsc.RingGeometry`;
-    None is `RING`) as the CLOUDSC_RING_<STAGES|BLOCK|MIN_BLOCKS> macros
-    of csrc/cloudsc_fused.cu."""
-    if ring is None:
-        from .cuda_cloudsc import RING as ring
+def nvcc_flags(ring=None, version=None) -> tuple:
+    """NVCC_FLAGS, K1's ring geometry (a `cuda_cloudsc.RingGeometry`; None
+    is `RING`) as the CLOUDSC_RING_<STAGES|BLOCK|MIN_BLOCKS> macros of
+    csrc/cloudsc_fused.cu, and K1's scheme version (a
+    `cuda_cloudsc.KernelVersion`; None is the reference configuration) as
+    the CLOUDSC_<switch> macros of csrc/cloudsc_scheme.cuh."""
+    from . import cuda_cloudsc
+
+    ring = cuda_cloudsc.RING if ring is None else ring
+    version = cuda_cloudsc.DEFAULT_VERSION if version is None else version
     return NVCC_FLAGS + (f"-DCLOUDSC_RING_STAGES={ring.stages}",
                          f"-DCLOUDSC_RING_BLOCK={ring.block}",
-                         f"-DCLOUDSC_RING_MIN_BLOCKS={ring.min_blocks}")
+                         f"-DCLOUDSC_RING_MIN_BLOCKS={ring.min_blocks}") \
+        + version.macros()
 
 
 def _sources(sources=None) -> list[Path]:
     """The .cu files to compile: all of csrc/, or `sources`."""
     return sorted(sources) if sources else sorted(CSRC.glob("*.cu"))
+
+
+def _version_sources(sources, version):
+    """(sources, version) with the default scheme version as None, and K1's
+    source alone for another version when no sources are named."""
+    from .cuda_cloudsc import DEFAULT_VERSION
+
+    if version == DEFAULT_VERSION:
+        version = None
+    if version is not None and not sources:
+        sources = [CSRC / "cloudsc_fused.cu"]
+    return sources, version
 
 
 def source_hash(flags: tuple, sources=None) -> str:
@@ -170,14 +191,17 @@ def ptxas_summary(info: dict) -> list[str]:
     return lines
 
 
-def build(verbose: bool = True, ring=None, sources=None) -> Path:
-    """Compile the sources (all of csrc/*.cu, or `sources`) with K1's ring
-    geometry (`ring`, see `nvcc_flags`) unless this hash is already built;
-    returns the library path, beside which `ptxas.log` holds ptxas' report.
-    The default build records its seconds and ptxas' registers/spills in
-    BUILD_INFO and prints them."""
-    default = ring is None and sources is None
-    flags = nvcc_flags(ring)
+def build(verbose: bool = True, ring=None, sources=None,
+          version=None) -> Path:
+    """Compile the sources (all of csrc/*.cu, or `sources`; K1's alone for
+    a scheme version other than the reference's) with K1's ring geometry
+    (`ring`) and scheme version (`version`, see `nvcc_flags`) unless this
+    hash is already built; returns the library path, beside which
+    `ptxas.log` holds ptxas' report. The default build records its seconds
+    and ptxas' registers/spills in BUILD_INFO and prints them."""
+    sources, version = _version_sources(sources, version)
+    default = ring is None and sources is None and version is None
+    flags = nvcc_flags(ring, version)
     srcs = _sources(sources)
     out_dir = BUILD_ROOT / source_hash(flags, sources)
     lib_path = out_dir / LIB_NAME
@@ -231,15 +255,16 @@ def build(verbose: bool = True, ring=None, sources=None) -> Path:
     return lib_path
 
 
-def load_library(ring=None, sources=None):
+def load_library(ring=None, sources=None, version=None):
     """The built library with its C entry points declared (builds on first
-    use); `ring` and `sources` as for `build`. A library built from some of
-    the sources declares the entry points it has."""
+    use); `ring`, `sources` and `version` as for `build`. A library built
+    from some of the sources declares the entry points it has."""
+    sources, version = _version_sources(sources, version)
     key = (ring,
-           tuple(sorted(map(str, sources))) if sources else None)
+           tuple(sorted(map(str, sources))) if sources else None, version)
     if key in _libs:
         return _libs[key]
-    lib = ctypes.CDLL(str(build(ring=ring, sources=sources)))
+    lib = ctypes.CDLL(str(build(ring=ring, sources=sources, version=version)))
     for name, argtypes in ENTRY_POINTS.items():
         if sources and not hasattr(lib, name):
             continue

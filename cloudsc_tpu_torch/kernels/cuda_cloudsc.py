@@ -21,18 +21,23 @@ CPU pack. Its `mode` also selects the TPU kernel's two diagnostic bodies
 (`floor`, `init`: the same I/O with degenerate or section-1 compute, for the
 measurement lab), with plain versions `cloudsc_floor_plain` /
 `cloudsc_init_plain`. `LAUNCHES`, `FLOOR_LAUNCHES` and `INIT_LAUNCHES` count
-the launches of the three bodies.
+the launches of the three bodies, `VERSION_LAUNCHES` the full body's by
+scheme version.
 
 The kernel streams each column's input rows through a per-thread ring of
 shared-memory stages filled by asynchronous copies. `RING` holds its
 geometry, the same in both precisions (the build passes it to the source
 as macros),
 `ring_schedule` models its slots and copy groups, and `occupancy` reads
-what the built kernel runs with on the card.
+what the built kernel runs with on the card. Each scheme version
+(`KernelVersion`: SchemeConfig's switches and the aerosol couplings) is a
+build of its own, made at first use; `kernel_version(c)` names the one a
+configuration runs.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -42,10 +47,12 @@ from ..physics import satfold, scheme
 from ..physics.cloudsc import CloudscOutputs
 from ..physics.scheme import IL, II, IR, IS, NCLV
 
-# kernel launches since import (or since a caller reset them), per body
+# kernel launches since import (or since a caller reset them), per body;
+# VERSION_LAUNCHES splits the full body's by scheme version (KernelVersion)
 LAUNCHES = 0
 FLOOR_LAUNCHES = 0
 INIT_LAUNCHES = 0
+VERSION_LAUNCHES: collections.Counter = collections.Counter()
 # mode -> the body's name in the C entry points (cloudsc_<body>_<f32|f64>)
 _BODIES = {"full": "fused", "floor": "floor", "init": "init"}
 MODES = tuple(_BODIES)
@@ -111,9 +118,24 @@ _FOLDED = {
     "rv_over_rd": lambda c, e: c.RV / c.RD,
     "rg_rpecons": lambda c, e: c.RG * e.rpecons,
 }
+# what only the scheme's alternate branches and aerosol couplings read,
+# appended so the reference configuration's constants keep their places
+_ALT_NAMES = (
+    "rprc1", "rccn", "rnice", "rcl_apb1", "rcl_apb2", "rcl_apb3",
+    "rcl_const1i", "rcl_const2i", "rcl_const3i", "rcl_const4i",
+    "rcl_const5i", "rcl_const2s", "rcl_const3s", "rcl_const4s",
+    "rcl_const5s",
+)
+_ALT_FOLDED = {
+    "rkconv_dt": lambda c, e: e.rkconv * c.ptsphy,
+    "rg_rpecons_half": lambda c, e: c.RG * e.rpecons * 0.5,
+    "c065_const6i": lambda c, e: 0.65 * e.rcl_const6i,
+    "c065_const6s": lambda c, e: 0.65 * e.rcl_const6s,
+}
 # The flat constants vector the kernel reads, one double each, in this
-# order; csrc/cloudsc_fused.cu declares the matching `enum Const`.
-CONST_NAMES = _C_NAMES + _THF_NAMES + _E_NAMES + tuple(_FOLDED)
+# order; csrc/cloudsc_scheme.cuh declares the matching `enum Const`.
+CONST_NAMES = _C_NAMES + _THF_NAMES + _E_NAMES + tuple(_FOLDED) \
+    + _ALT_NAMES + tuple(_ALT_FOLDED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,9 +148,11 @@ class RingGeometry:
     block: int
     min_blocks: int
 
-    def smem_bytes(self, itemsize: int) -> int:
-        """Dynamic shared memory of one block: [S][rows][block] values."""
-        return self.stages * len(pack_rows(True)) * self.block * itemsize
+    def smem_bytes(self, itemsize: int, nrows: int | None = None) -> int:
+        """Dynamic shared memory of one block: [S][rows][block] values, for
+        a pack of `nrows` rows (the reference configuration's 19 if None)."""
+        nrows = len(pack_rows(True)) if nrows is None else nrows
+        return self.stages * nrows * self.block * itemsize
 
 
 # the ring geometry K1 is built with in both precisions, the fastest in
@@ -136,6 +160,41 @@ class RingGeometry:
 # kernels/build.py passes it to csrc/cloudsc_fused.cu as the
 # CLOUDSC_RING_* macros
 RING = RingGeometry(stages=4, block=128, min_blocks=2)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelVersion:
+    """The scheme version one build of K1 computes: SchemeConfig's four
+    switches and the aerosol couplings. kernels/build.py passes it to
+    csrc/cloudsc_scheme.cuh as the CLOUDSC_* macros, one library a
+    version. The liquid couplings act only under IWARMRAIN=1, so
+    `kernel_version` drops them elsewhere and such a configuration shares
+    its build with the uncoupled one."""
+
+    iwarmrain: int = 2
+    ievaprain: int = 2
+    ievapsnow: int = 1
+    idepice: int = 1
+    laericesed: bool = False
+    laericeauto: bool = False
+    laerliqautolsp: bool = False
+    laerliqcoll: bool = False
+
+    def macros(self) -> tuple:
+        return tuple(f"-DCLOUDSC_{f.name.upper()}={int(getattr(self, f.name))}"
+                     for f in dataclasses.fields(self))
+
+
+# the reference configuration (2, 2, 1, 1), no aerosol coupling
+DEFAULT_VERSION = KernelVersion()
+
+
+def kernel_version(c) -> KernelVersion:
+    """The build that computes `derived_consts` `c`'s scheme version."""
+    liq = c.IWARMRAIN == 1
+    return KernelVersion(
+        c.IWARMRAIN, c.IEVAPRAIN, c.IEVAPSNOW, c.IDEPICE, c.LAERICESED,
+        c.LAERICEAUTO, liq and c.LAERLIQAUTOLSP, liq and c.LAERLIQCOLL)
 
 
 def ring_schedule(nlev: int, stages: int) -> list[tuple]:
@@ -170,8 +229,8 @@ def const_values(c) -> dict:
     """CONST_NAMES -> value, from the port's `derived_consts`."""
     v = {n: getattr(c, n) for n in _C_NAMES}
     v.update({n: getattr(c.thf, n) for n in _THF_NAMES})
-    v.update({n: getattr(c.e, n) for n in _E_NAMES})
-    v.update({n: f(c, c.e) for n, f in _FOLDED.items()})
+    v.update({n: getattr(c.e, n) for n in _E_NAMES + _ALT_NAMES})
+    v.update({n: f(c, c.e) for n, f in {**_FOLDED, **_ALT_FOLDED}.items()})
     return v
 
 
@@ -332,24 +391,29 @@ def pack_inputs_folded(inp, params, config=None, dtype=torch.float32,
 # the step
 # ---------------------------------------------------------------------------
 
-def check_kernel_args(p: FoldedPack, c) -> None:
-    """Raise ValueError for what the CUDA kernel does not take: another
-    SchemeConfig than the reference default (2, 2, 1, 1), aerosol rows, a
-    pack without the streamed ZDQS row or of unknown layout, a dtype other than fp32/fp64, a non-contiguous or
-    mis-shaped buffer, or a tensor that is not on a CUDA device."""
+def check_kernel_config(c) -> None:
+    """Raise ValueError for a SchemeConfig the CUDA kernel does not take:
+    `skip` tags, `dynamic_skips=False`, or a switch outside 1-2. Every one
+    of the 16 scheme versions, with any aerosol coupling, is taken."""
     cfg = (c.IWARMRAIN, c.IEVAPRAIN, c.IEVAPSNOW, c.IDEPICE)
-    if cfg != (2, 2, 1, 1) or c.skip or not c.dynamic_skips:
+    if any(v not in (1, 2) for v in cfg) or c.skip or not c.dynamic_skips:
         raise ValueError(
-            f"the CUDA kernel implements the reference SchemeConfig "
-            f"(2, 2, 1, 1) with dynamic skips only; got {cfg}, skip="
+            f"the CUDA kernel implements the SchemeConfig versions (1|2, "
+            f"1|2, 1|2, 1|2) with dynamic skips only; got {cfg}, skip="
             f"{sorted(c.skip)}, dynamic_skips={c.dynamic_skips}")
-    if aer_rows(c):
-        raise ValueError(f"the CUDA kernel takes no aerosol rows "
-                         f"(got {aer_rows(c)})")
+
+
+def check_kernel_args(p: FoldedPack, c) -> None:
+    """Raise ValueError for what the CUDA kernel does not take: a
+    configuration `check_kernel_config` refuses, a pack without the
+    streamed ZDQS row or of another layout than the version's (its aerosol
+    rows included), a dtype other than fp32/fp64, a non-contiguous or
+    mis-shaped buffer, or a tensor that is not on a CUDA device."""
+    check_kernel_config(c)
     if not p.fn:
         raise ValueError("the CUDA kernel takes the pack layout with the "
                          "streamed ZDQS row (fn) only")
-    if tuple(p.rows) != pack_rows(True):
+    if tuple(p.rows) != pack_rows(True, aer_rows(c)):
         raise ValueError(f"unknown pack layout {p.rows}")
     if p.pack.dtype not in (torch.float32, torch.float64) \
             or p.col.dtype != p.pack.dtype or c.dtype != p.pack.dtype:
@@ -372,8 +436,8 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
     o_half (nlev+1, 10, ncol), o_prainfrac (ncol,)) on the pack's device.
     `mode` "floor" or "init" runs the diagnostic body instead of the
     physics. A CUDA pack launches the kernel (or raises); a CPU pack runs
-    the plain version. `lib` is a library from `build.load_library` (the
-    default build if None)."""
+    the plain version. `lib` is a library from `build.load_library` (if
+    None, the build of `c`'s scheme version, `kernel_version(c)`)."""
     global LAUNCHES, FLOOR_LAUNCHES, INIT_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
@@ -387,7 +451,7 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
     if lib is None:
         from . import build
 
-        lib = build.load_library()
+        lib = build.load_library(version=kernel_version(c))
     if consts is None:
         consts = const_vector(c, p.pack.device)
     if consts.dtype != torch.float64 or consts.device != p.pack.device \
@@ -410,6 +474,7 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
         INIT_LAUNCHES += 1
     else:
         LAUNCHES += 1
+        VERSION_LAUNCHES[kernel_version(c)] += 1
     if rc != 0:
         raise RuntimeError(f"cloudsc_fused ({mode}) launch failed: CUDA "
                            f"error {rc}")
@@ -631,7 +696,8 @@ def assemble(res, p: FoldedPack, c) -> CloudscOutputs:
 
 class FusedStep(torch.nn.Module):
     """The step with its constants held as a buffer: `derived_consts` for
-    the working dtype and the kernel's flat constants vector."""
+    the working dtype and the kernel's flat constants vector. On the card
+    it launches the build of its own scheme version (`kernel_version`)."""
 
     def __init__(self, params, ptsphy: float, dtype, config=None):
         super().__init__()

@@ -1,16 +1,27 @@
-"""The CLOUDSC output contract on torch tensors.
+"""The CLOUDSC output contract and the eager scan engine on torch tensors.
 
-Counterpart of `CloudscOutputs` in `cloudsc_tpu/physics/cloudsc.py`: the same
-21 fields in the same order and shapes, columns on the trailing axis. The
-field-dict scan engine of that module has no counterpart here yet; the port's
-step is the fused kernel in `kernels/cuda_cloudsc.py`.
+Counterpart of `cloudsc_tpu/physics/cloudsc.py`: `CloudscOutputs` (the same
+21 fields in the same order and shapes, columns on the trailing axis),
+`make_inputs` (an `InputData` -> the field dict, plain or folded, on host
+tensors) and `cloudsc` (one step over every column of a field dict). The
+engine is the JAX module's without its XLA schedule choices (the packed
+closure, the scan unroll): section 1 (`scheme.level_init`) over all levels
+at once, a Python loop over the levels from NCLDTOP down calling
+`scheme.level_step` on per-level views, then the full-level assembly and
+the section-8 cumulative fluxes. It runs on whatever device its tensors are
+on, one torch operation at a time, and is the port's `--kernel scan`: the
+fp64 golden surface and the engine for what the fused kernel does not take.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from . import scheme
+from .scheme import IL, II, IR, IS, NCLV
 
 
 class CloudscOutputs(NamedTuple):
@@ -35,3 +46,258 @@ class CloudscOutputs(NamedTuple):
     tendency_loc_q: torch.Tensor     # (nlev, ncol)
     tendency_loc_a: torch.Tensor     # (nlev, ncol)
     tendency_loc_cld: torch.Tensor   # (nclv, nlev, ncol) — vapour slot zero
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+# per-level fields of the plain dict: key -> snapshot name
+_PLAIN = (
+    ("pt", "PT"), ("pq", "PQ"),
+    ("tendency_tmp_t", "TENDENCY_TMP_T"), ("tendency_tmp_q", "TENDENCY_TMP_Q"),
+    ("tendency_tmp_a", "TENDENCY_TMP_A"),
+    ("tendency_tmp_cld", "TENDENCY_TMP_CLD"),
+    ("pvfa", "PVFA"), ("pvfl", "PVFL"), ("pvfi", "PVFI"),
+    ("pdyna", "PDYNA"), ("pdynl", "PDYNL"), ("pdyni", "PDYNI"),
+    ("phrsw", "PHRSW"), ("phrlw", "PHRLW"),
+    ("pvervel", "PVERVEL"), ("pap", "PAP"), ("paph", "PAPH"),
+    ("plsm", "PLSM"),
+    ("plu", "PLU"), ("plude", "PLUDE"), ("psnde", "PSNDE"),
+    ("pmfu", "PMFU"), ("pmfd", "PMFD"),
+    ("pa", "PA"), ("pclv", "PCLV"), ("psupsat", "PSUPSAT"),
+)
+# what the folded dict keeps of the snapshot as it is
+_FOLDED_REST = (
+    ("pvfl", "PVFL"), ("pvfi", "PVFI"),
+    ("pvervel", "PVERVEL"), ("pap", "PAP"), ("paph", "PAPH"),
+    ("plsm", "PLSM"),
+    ("plu", "PLU"), ("plude", "PLUDE"), ("psnde", "PSNDE"),
+    ("psupsat", "PSUPSAT"),
+)
+_AEROSOL = (
+    ("plcrit_aer", "PLCRIT_AER"), ("picrit_aer", "PICRIT_AER"),
+    ("pre_ice", "PRE_ICE"), ("pccn", "PCCN"), ("pnice", "PNICE"),
+)
+
+
+def make_inputs(inp, dtype=torch.float64, column_order: str = "cyclic",
+                column_perm=None, fold: bool = False,
+                fold_curves: bool = False, fold_newton: bool = False,
+                fold_dep: bool = False, params=None, config=None) -> dict:
+    """An `InputData` -> the field dict `cloudsc` consumes, as host tensors
+    (cloudsc_tpu.physics.make_inputs with host=True). Fields are cast at
+    file width, then expanded to `inp.ngptot` columns in `column_order`
+    ("cyclic", the reference's, or "grouped"; `column_perm`, grouped only,
+    permutes the source columns first).
+
+    `fold=True` gives the folded contract: the section-1 state accumulation
+    and the always-summed pairs computed in fp64 at file width, then cast
+    (ztp1_in, zqv_in, za_in, zqx_cld_in, pmf, zhr in place of pt, pq, pa,
+    pclv, the tendencies and the pairs); `fold_newton` (needs `params`)
+    adds the 3.4b Newton's ZDQS row (physics/satfold). The JAX package's
+    default-off folded saturation-curve and deposition rows (`fold_curves`,
+    `fold_dep`) are not ported."""
+    from ..data.expand import expand_field
+
+    if column_perm is not None and column_order != "grouped":
+        raise ValueError("column_perm requires column_order='grouped'")
+    if fold_curves or fold_dep:
+        raise NotImplementedError("the folded saturation-curve and "
+                                  "deposition rows are not ported")
+    f = inp.fields
+    ngptot = inp.ngptot
+    np_dtype = _NP_DTYPES[dtype]
+
+    def cast(name, to=None):
+        a = np.asarray(f[name]) if isinstance(name, str) else name
+        to = np.dtype(np_dtype if to is None else to)
+        if a.dtype != to:
+            a = a.astype(to)
+        if a.shape[-1] != ngptot:
+            if column_perm is not None:
+                a = a[..., column_perm]
+            a = expand_field(a, ngptot, order=column_order)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    flags = {"ldcum": cast("LDCUM", to=bool),
+             "ktype": cast("KTYPE", to=np.int32)}
+    if not fold:
+        return {**{k: cast(n) for k, n in _PLAIN + _AEROSOL}, **flags}
+
+    dt64 = float(inp.ptsphy)
+
+    def f64(name):
+        return np.asarray(f[name], np.float64)
+
+    ztp1_64 = f64("PT") + dt64 * f64("TENDENCY_TMP_T")
+    folded = {
+        "ztp1_in": cast(ztp1_64),
+        "zqv_in": cast(f64("PQ") + dt64 * f64("TENDENCY_TMP_Q")),
+        "za_in": cast(f64("PA") + dt64 * f64("TENDENCY_TMP_A")),
+        "zqx_cld_in": cast(f64("PCLV")[:4]
+                           + dt64 * f64("TENDENCY_TMP_CLD")[:4]),
+        "pmf": cast(f64("PMFU") + f64("PMFD")),
+        "zhr": cast(f64("PHRSW") + f64("PHRLW")),
+    }
+    if fold_newton:
+        from . import satfold
+
+        if params is None:
+            raise ValueError("fold_newton needs params")
+        c64 = scheme.derived_consts(params, dt64, torch.float64, config)
+        curves = satfold.curve_rows(c64, ztp1_64, f64("PAP"))
+        folded["zdqs"] = cast(satfold.newton_zdqs(
+            c64, ztp1_64, f64("PAP"), f64("PAPH"),
+            f64("PMFU") + f64("PMFD"), f64("PHRSW") + f64("PHRLW"),
+            f64("PVERVEL"), curves["zqsmix"],
+        ))
+    return {**folded, **{k: cast(n) for k, n in _FOLDED_REST + _AEROSOL},
+            **flags}
+
+
+def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
+    """One CLOUDSC step over every column of a `make_inputs` field dict
+    (plain or folded), on the fields' device. `config` selects the scheme
+    version (scheme.SchemeConfig; the reference configuration if None)."""
+    folded = "ztp1_in" in fields
+    pt = fields["ztp1_in"] if folded else fields["pt"]
+    dtype, dev = pt.dtype, pt.device
+    nlev, ncol = pt.shape
+    c = scheme.derived_consts(params, ptsphy, dtype, config)
+
+    # ==================================================================
+    # 1. INITIAL VALUES (ref: 654-808), every level at once
+    # ==================================================================
+    if folded:
+        raw = dict(ztp1_in=pt, zqv_in=fields["zqv_in"], za_in=fields["za_in"],
+                   zqx_cld_in=[fields["zqx_cld_in"][m] for m in range(4)],
+                   pap=fields["pap"])
+    else:
+        raw = dict(
+            pt=pt, pq=fields["pq"], pa=fields["pa"], pap=fields["pap"],
+            tendency_tmp_t=fields["tendency_tmp_t"],
+            tendency_tmp_q=fields["tendency_tmp_q"],
+            tendency_tmp_a=fields["tendency_tmp_a"],
+            pclv=[fields["pclv"][m] for m in range(4)],
+            tendency_tmp_cld=[fields["tendency_tmp_cld"][m] for m in range(4)],
+        )
+    ini = scheme.level_init(raw, c)
+    # the full-level arrays the level views slice; the scheme only ever
+    # consumes PMFU+PMFD and PHRSW+PHRLW summed (the folded dict carries
+    # the fp64 sums)
+    rows = {n: ini[n] for n in (
+        "ztp1", "za", "zaorig", "zqsmix", "zqsliq", "zqsice", "zfoeew",
+        "zfoeewmt", "zfoeeliqt", "zfoealfa", "zli", "zliqfrac", "zicefrac",
+        "zfoeeliq", "zfoeeice", "zfokoop", "tend_t_pre", "tend_q_pre")}
+    rows.update(
+        pap=fields["pap"], paph=fields["paph"],
+        pmf=fields["pmf"] if folded else fields["pmfu"] + fields["pmfd"],
+        zhr=fields["zhr"] if folded else fields["phrsw"] + fields["phrlw"],
+        pvervel=fields["pvervel"], plude_in=fields["plude"],
+        plu=fields["plu"], psnde=fields["psnde"], psupsat=fields["psupsat"])
+    aer = [n for n, on in (("pre_ice", c.LAERICESED),
+                           ("picrit_aer", c.LAERICEAUTO),
+                           ("pnice", c.LAERICEAUTO),
+                           ("plcrit_aer", c.LAERLIQAUTOLSP or c.LAERLIQCOLL),
+                           ("pccn", c.LAERLIQAUTOLSP or c.LAERLIQCOLL)) if on]
+    for n in aer:
+        rows[n] = fields[n]
+    if "zdqs" in fields:
+        rows["zdqs"] = fields["zdqs"]
+    paph_surf = fields["paph"][nlev]
+    land = fields["plsm"] > 0.5
+    ktop = c.NCLDTOP - 1           # 0-based first level of the loop
+    zqtmst = c.zqtmst
+
+    def make_x(k):
+        """Level k's view: rows at k, and at k-1 / k+1 where the scheme
+        reads them, the index clamped to the array as the JAX scan's
+        dynamic slices clamp it (every such read is masked by not_first /
+        not_last)."""
+        def row(name, off=0):
+            a = rows[name]
+            return a[min(max(k + off, 0), a.shape[0] - 1)]
+
+        x = {name: row(name) for name in rows}
+        x.update(
+            ztp1_prev=row("ztp1", -1), za_prev=row("za", -1),
+            pap_prev=row("pap", -1), paph_next=row("paph", 1),
+            pmf_next=row("pmf", 1), plu_next=row("plu", 1),
+            zqx=[ini["zqx"][m][k] for m in range(NCLV)],
+            paph_surf=paph_surf, land=land, ldcum=fields["ldcum"],
+            ktype=fields["ktype"],
+            not_first=torch.tensor(k > ktop, device=dev),
+            not_last=torch.tensor(k < nlev - 1, device=dev))
+        return x
+
+    # ==================================================================
+    # 3-6. THE LEVEL LOOP (ref: 854-2775), written into the full-level
+    # arrays as it goes
+    # ==================================================================
+    zqxn = pt.new_zeros((NCLV, nlev, ncol))
+    zpfplsx = pt.new_zeros((nlev + 1, NCLV, ncol))
+    plude = fields["plude"].clone()
+    pcovptot = pt.new_zeros((nlev, ncol))
+    tend_t = ini["tend_t_pre"].clone()
+    tend_q = ini["tend_q_pre"].clone()
+    tend_a = pt.new_zeros((nlev, ncol))
+    carry = scheme.initial_carry(ini["ztp1"][0], c)
+    for k in range(ktop, nlev):
+        carry, ys = scheme.level_step(make_x(k), carry, c)
+        for m in range(NCLV):
+            zqxn[m, k] = ys["zqxn"][m]
+            # half level k+1 receives level k's flux (ref: 687, 2698-2702)
+            zpfplsx[k + 1, m] = ys["pfplsx_next"][m]
+        plude[k] = ys["plude"]
+        pcovptot[k] = ys["pcovptot"]
+        tend_t[k] = ys["tend_t"]
+        tend_q[k] = ys["tend_q"]
+        tend_a[k] = ys["tend_a"]
+
+    zqx0 = ini["zqx0"]
+    tend_cld = pt.new_zeros((NCLV, nlev, ncol))
+    for m in (IL, II, IR, IS):
+        tend_cld[m, ktop:] = (zqxn[m, ktop:] - zqx0[m][ktop:]) * zqtmst
+
+    # ==================================================================
+    # 8. flux diagnostics (ref: 2788-2867)
+    # ==================================================================
+    paph = fields["paph"]
+    pvfl, pvfi, zfoealfa = fields["pvfl"], fields["pvfi"], ini["zfoealfa"]
+    zlneg = ini["zlneg"]
+    pfplsl = zpfplsx[:, IR] + zpfplsx[:, IL]
+    pfplsn = zpfplsx[:, IS] + zpfplsx[:, II]
+    zgdph_r = -c.zrg_r * (paph[1:] - paph[:-1]) * zqtmst   # (nlev, ncol)
+    liq_inc = (zqxn[IL] - zqx0[IL] + pvfl * ptsphy - zfoealfa * plude) * zgdph_r
+    ice_inc = (zqxn[II] - zqx0[II] + pvfi * ptsphy
+               - (1.0 - zfoealfa) * plude) * zgdph_r
+    rain_inc = (zqxn[IR] - zqx0[IR]) * zgdph_r
+    snow_inc = (zqxn[IS] - zqx0[IS]) * zgdph_r
+    zero_row = pt.new_zeros((1, ncol))
+
+    def half_cumsum(inc):
+        """PF(jk+1) = sum_{j<=jk} inc(j); PF(0) = 0 (ref: 2798-2857)."""
+        return torch.cat([zero_row, torch.cumsum(inc, dim=0)])
+
+    def after(prev, inc):
+        """Rain/snow accumulate onto the liquid/ice flux of the level above
+        (ref: 2818-2819)."""
+        return torch.cat([zero_row, prev[:-1] + inc])
+
+    pfsqlf = half_cumsum(liq_inc)
+    pfsqif = half_cumsum(ice_inc)
+    pfcqlng = half_cumsum(zlneg[IL] * zgdph_r)
+    pfcqnng = half_cumsum(zlneg[II] * zgdph_r)
+    return CloudscOutputs(
+        plude=plude, pcovptot=pcovptot,
+        prainfrac_toprfz=carry["prainfrac"],
+        pfsqlf=pfsqlf, pfsqif=pfsqif, pfcqlng=pfcqlng, pfcqnng=pfcqnng,
+        pfsqrf=after(pfsqlf, rain_inc), pfsqsf=after(pfsqif, snow_inc),
+        pfcqrng=after(pfcqlng, zlneg[IR] * zgdph_r),
+        pfcqsng=after(pfcqnng, zlneg[IS] * zgdph_r),
+        pfsqltur=half_cumsum(pvfl * ptsphy * zgdph_r),
+        pfsqitur=half_cumsum(pvfi * ptsphy * zgdph_r),
+        pfplsl=pfplsl, pfplsn=pfplsn,
+        pfhpsl=-c.RLVTT * pfplsl, pfhpsn=-c.RLSTT * pfplsn,
+        tendency_loc_t=tend_t, tendency_loc_q=tend_q, tendency_loc_a=tend_a,
+        tendency_loc_cld=tend_cld,
+    )

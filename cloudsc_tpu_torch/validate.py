@@ -1,10 +1,18 @@
 """Golden-file validation: per-field error norms + the reference's table format.
 
-Counterpart of `cloudsc_tpu/validate.py` for one process (numpy, on the
-host). Per field: min, max, AbsMaxErr, AvgAbsErr/GP, MaxRelErr-%, with a
-' !!!!' flag when the relative error exceeds 10*machine-eps of the working
-precision (ref: src/common/module/validate_mod.F90:263-296; header print
-ref: src/common/module/cloudsc_global_state_mod.F90:296-299).
+Counterpart of `cloudsc_tpu/validate.py` for one process. Per field: min,
+max, AbsMaxErr, AvgAbsErr/GP, MaxRelErr-%, with a ' !!!!' flag when the
+relative error exceeds 10*machine-eps of the working precision (ref:
+src/common/module/validate_mod.F90:263-296; header print ref:
+src/common/module/cloudsc_global_state_mod.F90:296-299).
+
+Two paths give the same table: `validate_outputs` on host arrays (numpy),
+and, for outputs left on the card, `device_field_norms` (the five norms of
+every field, reduced in fp64 where the outputs lie; only the (21, 5) rows
+leave the device) followed by `validate_from_norms`. The reference the
+device path compares against is put on the card at file width and
+expanded there (`reference_on_device`), so the host never holds it at the
+run's width.
 """
 
 from __future__ import annotations
@@ -153,3 +161,61 @@ def validate_outputs(outputs, reference: dict, ngptotg: int | None = None,
         print("\n".join([validation_header()]
                         + [error_line(errs) for errs in results]))
     return results
+
+
+def device_field_norms(outputs, reference: dict):
+    """All 21 fields' (min, max, maxerr, errsum, refsum) as one (21, 5)
+    float64 tensor on the outputs' device. `outputs` is a CloudscOutputs of
+    tensors, `reference` the REF_DATASET-keyed tensors on the same device
+    (`reference_on_device`). Each field and its reference are taken in fp64
+    and |f - r| and the sums are formed in fp64, as `field_errors` does on
+    the host; columns beyond the reference's are dropped."""
+    import torch
+
+    rows = []
+    for name, _ in VALIDATION_ORDER:
+        r = reference[REF_DATASET[name]].double()
+        f = getattr(outputs, FIELD_ATTR[name])[..., : r.shape[-1]].double()
+        d = (f - r).abs()
+        rows.append(torch.stack([f.min(), f.max(), d.max(), d.sum(),
+                                 r.abs().sum()]))
+    return torch.stack(rows)
+
+
+def validate_from_norms(norms, ngptotg: int, print_table: bool = True,
+                        work_eps: float | None = None) -> list[FieldErrors]:
+    """The validation table from precomputed (21, 5) norm rows (the device
+    path). `work_eps` is the run's working-precision epsilon: an fp32 run
+    flags at 10*sp-eps like the reference's single-precision build (ref:
+    validate_mod.F90:270)."""
+    norms = np.asarray(norms, dtype=np.float64)
+    if work_eps is None:
+        work_eps = float(np.finfo(np.float64).eps)
+    results = [
+        FieldErrors(name=name, ndim=ndim, minval=float(r[0]),
+                    maxval=float(r[1]), maxerr=float(r[2]),
+                    errsum=float(r[3]), refsum=float(r[4]),
+                    avgpgp=float(r[3]) / float(ngptotg), eps=work_eps)
+        for (name, ndim), r in zip(VALIDATION_ORDER, norms)
+    ]
+    if print_table:
+        print("\n".join([validation_header()]
+                        + [error_line(errs) for errs in results]))
+    return results
+
+
+def reference_on_device(path, ngptot: int, device) -> dict:
+    """The golden outputs on `device`, in fp64, expanded there to `ngptot`
+    columns with `data.load_reference`'s cyclic index (column j holds file
+    column j % klon): only the file-width arrays cross from the host."""
+    import torch
+
+    from . import data
+
+    raw = data.load_reference(path)
+    out = {}
+    for name, a in raw.items():
+        t = torch.as_tensor(np.asarray(a, np.float64)).to(device)
+        idx = torch.arange(ngptot, device=t.device) % t.shape[-1]
+        out[name] = t.index_select(t.ndim - 1, idx)
+    return out

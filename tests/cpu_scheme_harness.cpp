@@ -1,0 +1,188 @@
+// csrc/cloudsc_scheme.cuh compiled for the host: fused_kernel's level loop
+// (csrc/cloudsc_fused.cu) with direct loads in place of the shared-memory
+// ring, one column after another, in double. tests/test_torch_kernel.py
+// builds it with g++ -ffp-contract=off, a stub cuda_runtime.h and the
+// scheme version's CLOUDSC_* macros, and holds its outputs to the plain
+// version's, so the CUDA header's arithmetic and branches are checked on a
+// host without a card.
+//
+//   harness NLEV NCOL NROWS DIR   reads DIR/{pack,col,consts}.bin (float64)
+//                                 and writes DIR/out.bin: o_lev, o_half,
+//                                 o_prainfrac
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+
+#include "cloudsc_scheme.cuh"
+
+using namespace cloudsc;
+using T = double;
+
+enum { OL_PLUDE, OL_PCOVPTOT, OL_TEND_T, OL_TEND_Q, OL_TEND_A, OL_TCLD0,
+       OL_COUNT = OL_TCLD0 + 4 };
+enum { OH_PFSQLF, OH_PFSQIF, OH_PFCQLNG, OH_PFCQNNG, OH_PFSQRF, OH_PFSQSF,
+       OH_PFCQRNG, OH_PFCQSNG, OH_PFPLSL, OH_PFPLSN, OH_COUNT };
+
+static void column(const T* pack, const T* col, const T* K, T* o_lev,
+                   T* o_half, T* o_pr, int nlev, int ncol, int nrows, int j) {
+  const T Z = T(0);
+  const int ktop = int(K[C_NCLDTOP]) - 1;
+  const int nssopt = int(K[C_NSSOPT]);
+  const T zqtmst = K[C_zqtmst], ptsphy = K[C_ptsphy];
+  const size_t n = size_t(ncol);
+  auto P = [&](int lev, int r) { return pack[(size_t(lev) * nrows + r) * n + j]; };
+  const T plsm = col[0 * n + j];
+  const bool ldcum = col[1 * n + j] > T(0.5);
+  const int ktype = int(col[2 * n + j]);
+  const T paph_surf = col[3 * n + j];
+  Carry<T> cr;
+  cr.zanewm1 = Z;
+  for (int m = 0; m < NCLV; ++m) { cr.zqxnm1[m] = Z; cr.pfplsx[m] = Z; }
+  cr.zcovptot = Z;
+  cr.zcovpmax = Z;
+  cr.zcldtopdist = Z;
+  cr.prainfrac = Z;
+  cr.llrainliq = true;
+  T ztp1_prev = Z, za_prev = Z, pap_prev = Z;
+  T a_lf = Z, a_if = Z, a_lng = Z, a_nng = Z;
+  T alf_prev = Z, aif_prev = Z, alng_prev = Z, anng_prev = Z;
+  T rain_prev = Z, snow_prev = Z, lnegr_prev = Z, lnegs_prev = Z;
+  for (int k = 0; k <= nlev; ++k) {
+    T* oh = o_half + size_t(k) * OH_COUNT * n + j;
+    oh[OH_PFSQLF * n] = a_lf;
+    oh[OH_PFSQIF * n] = a_if;
+    oh[OH_PFCQLNG * n] = a_lng;
+    oh[OH_PFCQNNG * n] = a_nng;
+    oh[OH_PFSQRF * n] = alf_prev + rain_prev;
+    oh[OH_PFSQSF * n] = aif_prev + snow_prev;
+    oh[OH_PFCQRNG * n] = alng_prev + lnegr_prev;
+    oh[OH_PFCQSNG * n] = anng_prev + lnegs_prev;
+    oh[OH_PFPLSL * n] = cr.pfplsx[IR] + cr.pfplsx[IL];
+    oh[OH_PFPLSN * n] = cr.pfplsx[IS] + cr.pfplsx[II];
+    if (k == nlev) break;
+    T zqx_in[4];
+    for (int m = 0; m < 4; ++m) zqx_in[m] = P(k, R_ZQX0_IN + m);
+    const T pap = P(k, R_PAP), plude_in = P(k, R_PLUDE);
+    const T paph_k = P(k, R_PAPH), paph_k1 = P(k + 1, R_PAPH);
+    Init<T> in;
+    level_init(K, P(k, R_ZTP1_IN), P(k, R_ZQV_IN), P(k, R_ZA_IN), zqx_in, pap,
+               in);
+    T plude_row = plude_in, pcovptot_row = Z, tend_t_row = in.tend_t_pre,
+      tend_q_row = in.tend_q_pre, tend_a_row = Z;
+    T zqxn_eff[NCLV];
+    for (int m = 0; m < NCLV; ++m) zqxn_eff[m] = Z;
+    if (k >= ktop) {
+      LevelX<T> x;
+      x.ztp1_prev = ztp1_prev;
+      x.za_prev = za_prev;
+      x.pap = pap;
+      x.pap_prev = pap_prev;
+      x.paph = paph_k;
+      x.paph_next = paph_k1;
+      x.paph_surf = paph_surf;
+      x.pmf = P(k, R_PMF);
+      x.pmf_next = P(k + 1, R_PMF);
+      x.plu_next = P(k + 1, R_PLU);
+      x.pvervel = P(k, R_PVERVEL);
+      x.zhr = P(k, R_ZHR);
+      x.plude_in = plude_in;
+      x.psnde = P(k, R_PSNDE);
+      x.psupsat = P(k, R_PSUPSAT);
+      x.zdqs = P(k, R_ZDQS);
+#if CLOUDSC_LAERICESED
+      x.pre_ice = P(k, R_PRE_ICE);
+#endif
+#if CLOUDSC_LAERICEAUTO
+      x.picrit_aer = P(k, R_PICRIT_AER);
+      x.pnice = P(k, R_PNICE);
+#endif
+#if CLOUDSC_AER_LIQ
+      x.plcrit_aer = P(k, R_PLCRIT_AER);
+      x.pccn = P(k, R_PCCN);
+#endif
+      x.land = plsm > T(0.5);
+      x.ldcum = ldcum;
+      x.ktype = ktype;
+      x.not_first = k > ktop;
+      x.not_last = k < nlev - 1;
+      Ys<T> ys;
+      level_step(K, nssopt, in, x, cr, ys);
+      plude_row = ys.plude;
+      pcovptot_row = ys.pcovptot;
+      tend_t_row = ys.tend_t;
+      tend_q_row = ys.tend_q;
+      tend_a_row = ys.tend_a;
+      for (int m = 0; m < NCLV; ++m) zqxn_eff[m] = ys.zqxn[m];
+    }
+    T* ol = o_lev + size_t(k) * OL_COUNT * n + j;
+    ol[OL_PLUDE * n] = plude_row;
+    ol[OL_PCOVPTOT * n] = pcovptot_row;
+    ol[OL_TEND_T * n] = tend_t_row;
+    ol[OL_TEND_Q * n] = tend_q_row;
+    ol[OL_TEND_A * n] = tend_a_row;
+    for (int m = 0; m < 4; ++m)
+      ol[(OL_TCLD0 + m) * n] = (zqxn_eff[m] - in.zqx0[m]) * zqtmst;
+    ztp1_prev = in.ztp1;
+    za_prev = in.za;
+    pap_prev = pap;
+    const T zgdph_r = -K[C_zrg_r] * (paph_k1 - paph_k) * zqtmst;
+    const T liq_inc = (zqxn_eff[IL] - in.zqx0[IL] + P(k, R_PVFL) * ptsphy -
+                       in.zfoealfa * plude_row) * zgdph_r;
+    const T ice_inc = (zqxn_eff[II] - in.zqx0[II] + P(k, R_PVFI) * ptsphy -
+                       (T(1) - in.zfoealfa) * plude_row) * zgdph_r;
+    alf_prev = a_lf;
+    aif_prev = a_if;
+    alng_prev = a_lng;
+    anng_prev = a_nng;
+    rain_prev = (zqxn_eff[IR] - in.zqx0[IR]) * zgdph_r;
+    snow_prev = (zqxn_eff[IS] - in.zqx0[IS]) * zgdph_r;
+    lnegr_prev = in.zlneg[IR] * zgdph_r;
+    lnegs_prev = in.zlneg[IS] * zgdph_r;
+    a_lf = a_lf + liq_inc;
+    a_if = a_if + ice_inc;
+    a_lng = a_lng + in.zlneg[IL] * zgdph_r;
+    a_nng = a_nng + in.zlneg[II] * zgdph_r;
+  }
+  o_pr[j] = cr.prainfrac;
+}
+
+static std::vector<T> read(const char* dir, const char* name, size_t count) {
+  char path[4096];
+  snprintf(path, sizeof path, "%s/%s", dir, name);
+  std::vector<T> v(count);
+  FILE* f = fopen(path, "rb");
+  if (!f || fread(v.data(), sizeof(T), count, f) != count) {
+    fprintf(stderr, "cannot read %zu values from %s\n", count, path);
+    exit(2);
+  }
+  fclose(f);
+  return v;
+}
+
+int main(int argc, char** argv) {
+  if (argc != 5) return 2;
+  const int nlev = atoi(argv[1]), ncol = atoi(argv[2]), nrows = atoi(argv[3]);
+  const char* dir = argv[4];
+  if (nrows != R_COUNT) {
+    fprintf(stderr, "a pack of %d rows, the build's R_COUNT is %d\n", nrows,
+            R_COUNT);
+    return 3;
+  }
+  const auto pack = read(dir, "pack.bin", size_t(nlev + 1) * nrows * ncol);
+  const auto col = read(dir, "col.bin", size_t(4) * ncol);
+  const auto K = read(dir, "consts.bin", C_COUNT);
+  std::vector<T> o_lev(size_t(nlev) * OL_COUNT * ncol),
+      o_half(size_t(nlev + 1) * OH_COUNT * ncol), o_pr(ncol);
+  for (int j = 0; j < ncol; ++j)
+    column(pack.data(), col.data(), K.data(), o_lev.data(), o_half.data(),
+           o_pr.data(), nlev, ncol, nrows, j);
+  char path[4096];
+  snprintf(path, sizeof path, "%s/out.bin", dir);
+  FILE* f = fopen(path, "wb");
+  if (!f) return 4;
+  fwrite(o_lev.data(), sizeof(T), o_lev.size(), f);
+  fwrite(o_half.data(), sizeof(T), o_half.size(), f);
+  fwrite(o_pr.data(), sizeof(T), o_pr.size(), f);
+  fclose(f);
+  return 0;
+}

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version on
 the same inputs, their launch counts (K1's three bodies, the overlap probe,
-the copy probe) and K1's occupancy. Every test needs a CUDA device and
-skips without one (marker `cuda`). The module imports no JAX, so that it
+the copy probe), K1's occupancy, each scheme version's build of K1, and
+the validation norms reduced on the card against the host's. Every test
+needs a CUDA device and skips without one (marker `cuda`). The module imports no JAX, so that it
 also runs on a GPU host without it, where the repo's conftest (which
 imports JAX) is left out:
 
@@ -22,6 +23,8 @@ import pytest
 import torch
 
 from cloudsc_tpu_torch import data as tdata
+from cloudsc_tpu_torch.data import synthetic
+from cloudsc_tpu_torch.kernels import build
 from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
 from cloudsc_tpu_torch.kernels import cuda_probes as cp
 from cloudsc_tpu_torch.params import Params
@@ -160,14 +163,82 @@ def test_kernel_occupancy(cuda, dtype):
 
 
 def test_cuda_pack_refuses_non_default_config(snapshot, cuda):
+    """A configuration other than the reference's (IWARMRAIN=1) is no longer
+    refused: the wrapper launches that version's own build, equal bit for
+    bit to the plain version, and still refuses what no build takes."""
     inp, params = snapshot
-    c = tscheme.derived_consts(params, inp.ptsphy, torch.float32,
-                               tscheme.SchemeConfig(iwarmrain=1))
-    p = cc.pack_inputs_folded(inp, params, dtype=torch.float32).to(cuda)
+    cfg = tscheme.SchemeConfig(iwarmrain=1)
+    c = tscheme.derived_consts(params, inp.ptsphy, torch.float32, cfg)
+    p = cc.pack_inputs_folded(inp, params, cfg, dtype=torch.float32).to(cuda)
     before = cc.LAUNCHES
+    got = cc.cloudsc_fused(p, c)
+    want = cc.cloudsc_fused_plain(p, c)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    skip = tscheme.derived_consts(params, inp.ptsphy, torch.float32,
+                                  tscheme.SchemeConfig(skip=("s37",)))
     with pytest.raises(ValueError, match="SchemeConfig"):
-        cc.cloudsc_fused(p, c)
-    assert cc.LAUNCHES == before
+        cc.cloudsc_fused(p, skip)
+    assert cc.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(synthetic.VERSION_CASES))
+def test_version_build_bitwise_equals_plain(cuda, case, dtype):
+    """Each scheme version's build (the four single alternates and the
+    aerosol build, each on the input that takes its branch) equals its
+    plain version bit for bit at a ragged 16,387 columns, launches once,
+    and differs from the reference configuration's build on that input."""
+    inp = tdata.load_input(tdata.default_input_path(), 16387)
+    params0 = Params.from_input(inp)
+    inp, params, cfg = synthetic.version_case(case, inp, params0)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype, cfg)
+    assert cc.kernel_version(c) != cc.DEFAULT_VERSION
+    p = cc.pack_inputs_folded(inp, params, cfg, dtype=dtype).to(cuda)
+    before = cc.LAUNCHES
+    got = cc.cloudsc_fused(p, c)
+    want = cc.cloudsc_fused_plain(p, c)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == before + 1
+    for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), \
+            f"{name}: max abs err {float((a - b).abs().max()):.3e}"
+    # the reference configuration's build, no coupling, on the same input
+    c0 = tscheme.derived_consts(params0, inp.ptsphy, dtype)
+    p0 = cc.pack_inputs_folded(inp, params0, dtype=dtype).to(cuda)
+    base = cc.cloudsc_fused(p0, c0)
+    assert any(not torch.equal(a, b) for a, b in zip(got, base))
+    occ = cc.occupancy(dtype, build.load_library(version=cc.kernel_version(c)))
+    assert occ["blocks_per_sm"] >= 1
+    assert occ["smem_bytes"] == cc.RING.smem_bytes(p.pack.element_size(),
+                                                   len(p.rows))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_norms_equal_host_norms(snapshot, cuda, dtype):
+    """The validation norms reduced on the card (against the reference
+    expanded there) equal the host path's within 1e-12 relative, per field
+    and statistic."""
+    from cloudsc_tpu_torch import validate as tvalidate
+
+    inp, params = snapshot
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    p = cc.pack_inputs_folded(inp, params, dtype=dtype,
+                              column_order="cyclic").to(cuda)
+    out = cc.assemble(cc.cloudsc_fused(p, c), p, c)
+    ref_dev = tvalidate.reference_on_device(tdata.default_reference_path(),
+                                            NCOL, cuda)
+    norms = tvalidate.device_field_norms(out, ref_dev).cpu().numpy()
+    host = tvalidate.validate_outputs(
+        type(out)(*(a.cpu().numpy() for a in out)),
+        tdata.load_reference(tdata.default_reference_path(), NCOL),
+        ngptotg=NCOL, print_table=False)
+    want = np.array([[e.minval, e.maxval, e.maxerr, e.errsum, e.refsum]
+                     for e in host])
+    np.testing.assert_allclose(norms, want, rtol=1e-12, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

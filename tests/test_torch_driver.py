@@ -1,5 +1,6 @@
 """The port's main path as a whole, on the CPU (the plain version of the
-kernel): the driver against reference.h5 and against the JAX driver, the CLI,
+kernel, and the eager scan engine): the driver against reference.h5 and
+against the JAX driver, its engines and their refusals, the CLI,
 the refusal to run `--device cuda` without a card, the h5py-free snapshot
 archives, the port's copies of the JAX package's numpy helpers, chip_smoke's
 fp64 bar, and that neither the package nor chip_smoke imports JAX or the JAX
@@ -58,7 +59,9 @@ def test_port_never_imports_jax():
         "cloudsc_tpu_torch.bench.ring_sweep, "
         "cloudsc_tpu_torch.bench.timing\n"
         "import cloudsc_tpu_torch.physics.scheme, "
-        "cloudsc_tpu_torch.physics.satfold, cloudsc_tpu_torch.validate\n"
+        "cloudsc_tpu_torch.physics.satfold, cloudsc_tpu_torch.validate, "
+        "cloudsc_tpu_torch.physics.cloudsc, "
+        "cloudsc_tpu_torch.data.synthetic\n"
         "import chip_smoke\n"
         "from cloudsc_tpu_torch.params import Params\n"
         "from cloudsc_tpu_torch.runtime.driver import CloudscDriver\n"
@@ -67,6 +70,10 @@ def test_port_never_imports_jax():
         "drv = CloudscDriver(Params.from_input(inp), inp.ptsphy, "
         "dtype=torch.float64, device='cpu')\n"
         "out, _, _ = drv.run(inp)\n"
+        "assert out.plude.shape == (137, 16)\n"
+        "drv = CloudscDriver(Params.from_input(inp), inp.ptsphy, "
+        "dtype=torch.float64, device='cpu', backend='scan')\n"
+        "out, _, _ = drv.run(inp, fetch_outputs=False)\n"
         "assert out.plude.shape == (137, 16)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'cloudsc_tpu') "
         "or m.startswith(('jax.', 'jaxlib', 'cloudsc_tpu.')))\n"
@@ -141,6 +148,61 @@ def test_cli_cpu_fp64():
     assert "Variable" in out and "MaxRelErr-%" in out
     for name, _ in VALIDATION_ORDER:
         assert f" {name:<20s} " in out, name
+
+
+def test_scan_driver_matches_reference_fp64(reference_100):
+    """The scan engine through the driver: the plain dict zero-padded to a
+    multiple of NPROMA (100 -> 112 columns) and cut back, within FP64_TOL of
+    reference.h5; with `fetch_outputs=False` the same values stay tensors
+    and no D2H is timed."""
+    inp = tdata.load_input(tdata.default_input_path(), 100)
+    drv = CloudscDriver(TParams.from_input(inp), inp.ptsphy,
+                        dtype=torch.float64, device="cpu", backend="scan",
+                        nproma=16)
+    assert drv.prepare(inp)["pt"].shape == (137, 112)
+    out, timings, _ = drv.run(inp, fetch_outputs=False)
+    assert isinstance(out.plude, torch.Tensor) and timings.d2h_s == 0.0
+    bad = {}
+    for name, _ in VALIDATION_ORDER:
+        got = getattr(out, FIELD_ATTR[name]).numpy()
+        want = reference_100[REF_DATASET[name]]
+        assert got.shape == want.shape, name
+        err = relerr(got, want)
+        if not err < FP64_TOL:
+            bad[name] = err
+    assert not bad, f"scan driver vs reference.h5: {bad}"
+
+
+def test_driver_engines_refuse_clearly(params, input_100):
+    """No silent fallback: a configuration the kernel does not take raises
+    and names the scan engine, which takes it; backend 'cuda' needs the
+    card; an unknown backend raises."""
+    from cloudsc_tpu_torch.physics.scheme import SchemeConfig
+
+    cfg = SchemeConfig(skip=("s37",))
+    with pytest.raises(ValueError, match="--kernel scan"):
+        CloudscDriver(params, input_100.ptsphy, device="cpu",
+                      scheme_config=cfg)
+    CloudscDriver(params, input_100.ptsphy, device="cpu", scheme_config=cfg,
+                  backend="scan")
+    with pytest.raises(ValueError, match="needs device='cuda'"):
+        CloudscDriver(params, input_100.ptsphy, device="cpu", backend="cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        CloudscDriver(params, input_100.ptsphy, device="cpu", backend="xla")
+
+
+def test_kernel_driver_keeps_outputs_on_device(cpu_fp64_100):
+    """`fetch_outputs=False` on the kernel path: the canonical-order
+    outputs as tensors, equal to the fetched ones."""
+    want, _ = cpu_fp64_100
+    inp = tdata.load_input(tdata.default_input_path(), 100)
+    out, timings, _ = CloudscDriver(
+        TParams.from_input(inp), inp.ptsphy, dtype=torch.float64,
+        device="cpu").run(inp, fetch_outputs=False)
+    assert timings.d2h_s == 0.0
+    for a, b in zip(out, want):
+        assert isinstance(a, torch.Tensor)
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 def test_cli_cuda_without_card_fails_clearly():
@@ -239,6 +301,9 @@ def test_expand_copy_equals_jax_package(params, ncol):
     f = inp.fields["PCLV"]
     np.testing.assert_array_equal(texpand.expand_field(f, ncol),
                                   jexpand.expand_field(f, ncol))
+    np.testing.assert_array_equal(
+        texpand.expand_field(f, ncol, order="grouped"),
+        jexpand.expand_field(f, ncol, order="grouped"))
 
 
 def test_validate_copy_equals_jax_package(cpu_fp64_100, reference_100,

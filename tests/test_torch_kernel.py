@@ -11,14 +11,18 @@ the CPU: its host pack, its plain version and the CUDA wrapper's contract.
     kernel's diagnostic bodies (`_mode`, interpret mode) on the same pack;
   * a CPU pack takes the plain version and launches nothing;
   * the constants / row enums of the CUDA source match the Python layout;
-  * the wrapper's argument check refuses what the kernel does not take;
+  * the wrapper's argument check takes every scheme version and refuses
+    what no build takes;
   * the kernel's input ring: its geometry reaches the source, its occupancy
     query is declared, and a replay of `ring_schedule` shows every read
-    complete and no stage overwritten before its last reader.
+    complete and no stage overwritten before its last reader;
+  * the CUDA scheme header, compiled for the host for each scheme version,
+    against the plain version.
 """
 
 import ctypes
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +37,7 @@ from cloudsc_tpu.params import Params
 from cloudsc_tpu.physics import cloudsc, make_inputs
 from cloudsc_tpu.physics import satfold as jsatfold
 from cloudsc_tpu.physics import scheme as jscheme
+from cloudsc_tpu_torch.data import synthetic
 from cloudsc_tpu_torch.kernels import build
 from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
 from cloudsc_tpu_torch.physics import satfold as tsatfold
@@ -247,7 +252,13 @@ def test_wrapper_takes_plain_version_on_cpu(plain_fp64_100):
 
 
 def _c_enum(name: str) -> list:
-    src = (build.CSRC / "cloudsc_scheme.cuh").read_text()
+    """The enumerators of `enum name` in cloudsc_scheme.cuh as the default
+    build compiles it (its #if blocks under the reference configuration's
+    macros)."""
+    from test_torch_engine import _preprocess, _version_macros
+
+    src = _preprocess((build.CSRC / "cloudsc_scheme.cuh").read_text(),
+                      _version_macros(cc.DEFAULT_VERSION))
     body = re.search(r"enum %s \{(.*?)\};" % name, src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     return [t.strip() for t in body.split(",") if t.strip()]
@@ -274,11 +285,18 @@ def test_pack_rows_match_c_enum():
 @pytest.mark.parametrize("config", [(1, 2, 1, 1), (2, 1, 1, 1), (2, 2, 2, 1),
                                     (2, 2, 1, 2)])
 def test_kernel_refuses_non_default_config(params, plain_fp64_100, config):
+    """Every scheme version is taken now: a single alternate's configuration
+    passes the configuration check and, on a CPU pack, stops only at the
+    CUDA-device check; its build differs from the reference's."""
     _, p, _, _ = plain_fp64_100
     c = tscheme.derived_consts(params, 3600.0, torch.float64,
                                tscheme.SchemeConfig(*config))
-    with pytest.raises(ValueError, match="SchemeConfig"):
+    cc.check_kernel_config(c)
+    with pytest.raises(ValueError, match="CUDA device"):
         cc.check_kernel_args(p, c)
+    v = cc.kernel_version(c)
+    assert (v.iwarmrain, v.ievaprain, v.ievapsnow, v.idepice) == config
+    assert v != cc.DEFAULT_VERSION
 
 
 def test_kernel_refuses_other_arguments(params, plain_fp64_100):
@@ -483,3 +501,66 @@ def test_ring_replay_finds_faults():
     wrong = [("read", op[1], (op[2] + 1) % stages) if op[0] == "read" else op
              for op in ops]
     assert any("which holds" in f for f in _replay_ring(wrong, nlev, stages))
+
+
+_STUB_CUDA_RUNTIME = """#pragma once
+#include <cmath>
+#include <math.h>
+#define __device__
+#define __host__
+#define __forceinline__ inline
+"""
+
+
+@pytest.mark.parametrize("case", ["reference", *synthetic.VERSION_CASES])
+def test_scheme_header_matches_plain_on_cpu(case, tmp_path):
+    """csrc/cloudsc_scheme.cuh compiled for the host (tests/
+    cpu_scheme_harness.cpp: fused_kernel's level loop without the ring, g++
+    -ffp-contract=off, the version's CLOUDSC_* macros) against the plain
+    version on the same 100-column fp64 pack, within test_golden's FP64_TOL
+    per field (the host libm and torch's CPU kernels differ by ulps;
+    measured 1.1e-15). Each scheme version's branches and constants are
+    held on a host without a card: a wrong constant in any of the alternate
+    branches moves a field by 1e-6 to 0.6 of its sum."""
+    import shutil
+    import subprocess
+
+    from cloudsc_tpu_torch.physics.cloudsc import CloudscOutputs
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    inp = _inp(100)
+    params = Params.from_input(inp)
+    cfg = tscheme.SchemeConfig()
+    if case != "reference":
+        inp, params, cfg = synthetic.version_case(case, inp, params)
+    c = tscheme.derived_consts(params, inp.ptsphy, torch.float64, cfg)
+    (tmp_path / "cuda_runtime.h").write_text(_STUB_CUDA_RUNTIME)
+    exe = tmp_path / "harness"
+    r = subprocess.run(
+        [gxx, "-O1", "-std=c++17", "-ffp-contract=off", f"-I{tmp_path}",
+         f"-I{build.CSRC}", *cc.kernel_version(c).macros(), "-o", str(exe),
+         str(Path(__file__).with_name("cpu_scheme_harness.cpp"))],
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    p = cc.pack_inputs_folded(inp, params, cfg, dtype=torch.float64)
+    p.pack.numpy().tofile(tmp_path / "pack.bin")
+    p.col.numpy().tofile(tmp_path / "col.bin")
+    cc.const_vector(c).numpy().tofile(tmp_path / "consts.bin")
+    r = subprocess.run([str(exe), str(p.nlev), str(p.ncol), str(len(p.rows)),
+                        str(tmp_path)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    raw = torch.from_numpy(np.fromfile(tmp_path / "out.bin", np.float64))
+    nl, n = p.nlev, p.ncol
+    sizes = (nl * len(cc.OLEV_ROWS) * n, (nl + 1) * len(cc.OHALF_ROWS) * n, n)
+    lev, half, pr = raw.split(sizes)
+    got = cc.assemble((lev.reshape(nl, -1, n), half.reshape(nl + 1, -1, n),
+                       pr), p, c)
+    want = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
+    bad = {name: relerr(getattr(got, name).numpy(), getattr(want, name).numpy())
+           for name in CloudscOutputs._fields
+           if not relerr(getattr(got, name).numpy(),
+                         getattr(want, name).numpy()) < FP64_TOL}
+    assert not bad, f"{case}: the host-compiled scheme header vs plain: {bad}"
