@@ -55,6 +55,27 @@ failed check (the script then exits non-zero and prints no result):
   3s. the eager scan engine (`CloudscDriver(backend="scan")`) in fp64 at the
      same size, validated on the card under the same bars; it launches no
      kernel (every count unchanged);
+  3a. the adjoint, fp64: `physics.autodiff.grad` of the gradient tests'
+     scalar head with respect to `pt` at 163,840 columns, in column blocks:
+     finite, not identically zero, and every column's gradient equal to its
+     source column's in a 100-column run on the card within GRAD_COPY_RTOL
+     of the largest gradient (bit for bit expected, and reported); seconds,
+     blocks and peak device memory;
+  3b. the tangent, fp64, on the adjoint's first block: `autodiff.jvp`
+     against a central finite difference (eps 1e-3, relative < 1e-4), and
+     <grad, v> against it (relative < 1e-12);
+  3c. parameter gradients, fp64, at 163,840 columns: d/d rcldiff and
+     d/d rkooptau of sum(tendency_loc_t^2) * 1e6 against a central finite
+     difference (step 1e-6 of the value, relative < 1e-5);
+  3d. the timestep loop (`examples.timestep_loop`), 3 steps at 163,840
+     columns with the state on the card: finite state, cloud fraction in
+     [0, 1], 150 K < T < 340 K, non-negative surface precipitation, budget
+     source > -1e-9, step 1 equal to the plain single step; seconds a step;
+  3e. the refusal: K1 with an input that requires grad raises;
+  3f. the energy monitor: with EC_PMON=1 the main path (fp64 and fp32,
+     PMON_ITERATIONS steps) reports the card's energy line from NVML, with
+     positive joules; joules a step.
+     Phases 3a-3d launch no hand-written kernel (every count unchanged);
   4. timing lines, each with the card's name and power limit, printed
      after phase 5;
   5. the measurement lab's path, through its entry points
@@ -122,6 +143,18 @@ RAGGED_NCOL = 16387
 # the card's validation norms against the host's, relative, per field and
 # statistic (the two reduce in fp64 in another order)
 NORMS_RTOL = 1e-12
+# an expanded column's gradient against its source column's in a 100-column
+# run, relative to the largest gradient (bit for bit is expected: the
+# card's elementwise arithmetic does not depend on a column's position, and
+# every block holds every source column, so it branches as that run does)
+GRAD_COPY_RTOL = 1e-12
+# tests/test_gradients.py's bars
+JVP_FD_EPS, JVP_FD_RTOL, ADJOINT_TANGENT_RTOL, PARAM_FD_RTOL = \
+    1e-3, 1e-4, 1e-12, 1e-5
+LOOP_STEPS = 3
+# steps of the main path under the energy monitor: NVML's energy counter
+# moves in steps of tens of milliseconds, so the window is about a second
+PMON_ITERATIONS = 200
 
 
 def bound(nbytes: float, flops: float, tag: str = "fp32"):
@@ -761,6 +794,263 @@ def phase_scan(inp, params, ref_dev):
     return timings, run_s
 
 
+def _kernel_counts():
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.kernels import cuda_probes as cp
+
+    return (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES,
+            dict(cc.VERSION_LAUNCHES), cp.OVERLAP_LAUNCHES, cp.COPY_LAUNCHES)
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def phase_adjoint(inp, params, fields):
+    """The `pt` gradient of the scalar head at NGPTOT columns through
+    `autodiff` (its default blocks), against a 100-column run on the card.
+    Returns (the gradient, seconds, blocks, peak bytes)."""
+    import dataclasses
+
+    import torch
+
+    from cloudsc_tpu_torch.bench.grad_blocks import scalar_head
+    from cloudsc_tpu_torch.physics import autodiff
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = autodiff.grad(scalar_head, fields, params, inp.ptsphy, ("pt",),
+                      device="cuda")["pt"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    blocks = -(-NGPTOT // autodiff.DEFAULT_BLOCK_COLUMNS)
+    if g.shape != fields["pt"].shape or not bool(torch.isfinite(g).all()):
+        raise RuntimeError("adjoint: wrong shape or NaN/inf")
+    gmax = float(g.abs().max())
+    if not gmax > 0.0:
+        raise RuntimeError("adjoint: identically zero")
+    klon = inp.klon_file
+    small = fields_on_device(dataclasses.replace(inp, ngptot=klon),
+                             torch.float64, "cuda")
+    g100 = autodiff.grad(scalar_head, small, params, inp.ptsphy, ("pt",),
+                         device="cuda")["pt"]
+    want = g100[:, torch.arange(NGPTOT, device="cuda") % klon]
+    worst = float((g - want).abs().max())
+    if not worst <= GRAD_COPY_RTOL * gmax:
+        raise RuntimeError(f"adjoint: a column's gradient differs from its "
+                           f"source column's by {worst:.3e} (max |g| "
+                           f"{gmax:.3e})")
+    print(f"phase adjoint fp64: d(scalar head)/d(pt) at {NGPTOT} columns in "
+          f"{blocks} blocks of {autodiff.DEFAULT_BLOCK_COLUMNS}: {seconds:.3f} "
+          f"s, peak {peak / 2**30:.2f} GiB; finite, max |g| {gmax:.3e}, "
+          f"{int((g != 0).sum())} nonzeros; every column against its source "
+          f"column in a {klon}-column run: max abs diff {worst:.3e} (bar "
+          f"{GRAD_COPY_RTOL:g} * max |g|; bit for bit: "
+          f"{bool(torch.equal(g, want))})")
+    return g, seconds, blocks, peak
+
+
+def phase_tangent(inp, params, fields, g):
+    """On the adjoint's first block: jvp against a central finite
+    difference and against <grad, v>. Returns (jvp seconds, forward
+    seconds)."""
+    import torch
+
+    from cloudsc_tpu_torch.bench.grad_blocks import scalar_head
+    from cloudsc_tpu_torch.physics import autodiff
+
+    n = min(autodiff.DEFAULT_BLOCK_COLUMNS, NGPTOT)
+    block = {k: v[..., :n].contiguous() for k, v in fields.items()}
+    v = torch.randn(block["pt"].shape, dtype=torch.float64, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0)) * 0.01
+    kw = dict(device="cuda", block_columns=n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, jv = autodiff.jvp(scalar_head, block, params, inp.ptsphy, {"pt": v},
+                         **kw)
+    torch.cuda.synchronize()
+    jvp_s = time.perf_counter() - t0
+
+    def f(pt):
+        return autodiff.value(scalar_head, {**block, "pt": pt}, params,
+                              inp.ptsphy, **kw)
+
+    t0 = time.perf_counter()
+    up = f(block["pt"] + JVP_FD_EPS * v)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fd = (up - f(block["pt"] - JVP_FD_EPS * v)) / (2 * JVP_FD_EPS)
+    vg = (g[:, :n] * v).sum()
+    r_fd, r_vg = _rel(fd, jv), _rel(vg, jv)
+    if not r_fd < JVP_FD_RTOL:
+        raise RuntimeError(f"tangent: jvp {float(jv):.9e} vs finite "
+                           f"difference {float(fd):.9e}, relative {r_fd:.3e}")
+    if not r_vg < ADJOINT_TANGENT_RTOL:
+        raise RuntimeError(f"tangent: <grad, v> {float(vg):.15e} vs jvp "
+                           f"{float(jv):.15e}, relative {r_vg:.3e}")
+    print(f"phase tangent fp64 ({n} columns): jvp {float(jv):.9e} in "
+          f"{jvp_s:.3f} s (a forward value {fwd_s:.3f} s); against the "
+          f"central finite difference relative {r_fd:.3e} (< {JVP_FD_RTOL:g})"
+          f"; <grad, v> against jvp relative {r_vg:.3e} (< "
+          f"{ADJOINT_TANGENT_RTOL:g})")
+    return jvp_s, fwd_s
+
+
+def phase_parameter(inp, params, fields):
+    """d/d rcldiff and d/d rkooptau of sum(tendency_loc_t^2) * 1e6 at NGPTOT
+    columns against central finite differences. Returns the seconds of the
+    gradient."""
+    import torch
+
+    from cloudsc_tpu_torch.physics import autodiff
+
+    def head(out, cols):
+        return (out.tendency_loc_t ** 2).sum() * 1e6
+
+    names = ("rcldiff", "rkooptau")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = autodiff.grad(head, fields, params, inp.ptsphy, names,
+                          device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for name in names:
+        theta0 = getattr(params.ydecldp, name)
+        eps = theta0 * 1e-6
+
+        def loss(theta):
+            # no graph is kept: the whole width in one piece
+            return float(autodiff.value(
+                head, fields, autodiff.with_params(params, {name: theta}),
+                inp.ptsphy, device="cuda", block_columns=NGPTOT))
+
+        fd = (loss(theta0 + eps) - loss(theta0 - eps)) / (2 * eps)
+        g = float(grads[name])
+        if not (g == g and abs(g) != float("inf") and g != 0.0):
+            raise RuntimeError(f"parameter: degenerate d/d{name}: {g}")
+        r = _rel(g, fd)
+        if not r < PARAM_FD_RTOL:
+            raise RuntimeError(f"parameter: d/d{name} {g:.9e} vs finite "
+                               f"difference {fd:.9e}, relative {r:.3e}")
+        print(f"phase parameter fp64: d/d{name} {g:.9e} against the central "
+              f"finite difference {fd:.9e}: relative {r:.3e} (< "
+              f"{PARAM_FD_RTOL:g})")
+    print(f"phase parameter fp64: both gradients at {NGPTOT} columns in one "
+          f"blocked pass, {seconds:.3f} s")
+    return seconds
+
+
+def phase_timestep_loop(inp, params, fields):
+    """LOOP_STEPS steps of the timestep loop at NGPTOT columns, the state on
+    the card throughout; tests/test_timestep_loop.py's checks. Returns the
+    seconds a step."""
+    import torch
+
+    from cloudsc_tpu_torch.examples import timestep_loop as tl
+    from cloudsc_tpu_torch.physics.cloudsc import cloudsc
+
+    step = tl.make_step(fields, params, inp.ptsphy)
+    state0 = {k: fields[k] for k in tl.STATE_KEYS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, diags = tl.integrate(step, state0, LOOP_STEPS)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LOOP_STEPS
+    for k in ("pt", "pq", "pa", "pclv"):
+        if final[k].device.type != "cuda" \
+                or not bool(torch.isfinite(final[k]).all()):
+            raise RuntimeError(f"timestep loop: {k} left the card or is "
+                               f"non-finite")
+    pa_lo, pa_hi = float(final["pa"].min()), float(final["pa"].max())
+    t_lo, t_hi = float(final["pt"].min()), float(final["pt"].max())
+    sprecip = diags["sprecip"].cpu().numpy()
+    q0 = float(tl.water_path(fields, params, state0))
+    src = (float(diags["wpath"][-1]) - q0) + inp.ptsphy * float(sprecip.sum())
+    with torch.no_grad():
+        out = cloudsc(fields, params, inp.ptsphy)
+        sp1 = float((out.pfplsl[-1] + out.pfplsn[-1]).mean())
+    del out
+    if not (pa_lo >= 0.0 and pa_hi <= 1.0 and 150.0 < t_lo and t_hi < 340.0
+            and bool((sprecip >= 0.0).all()) and src > -1e-9
+            and float(sprecip[0]) == sp1):
+        raise RuntimeError(f"timestep loop: pa [{pa_lo}, {pa_hi}], T [{t_lo}, "
+                           f"{t_hi}], surface precipitation {sprecip}, budget "
+                           f"source {src}, step 1 {float(sprecip[0])} vs the "
+                           f"single step {sp1}")
+    print(f"phase timestep loop fp64: {LOOP_STEPS} steps at {NGPTOT} columns, "
+          f"{step_s:.3f} s a step, state on the card; pa in [{pa_lo:.3f}, "
+          f"{pa_hi:.3f}], T in [{t_lo:.2f}, {t_hi:.2f}] K, surface "
+          f"precipitation {', '.join(f'{86400 * x:.4f}' for x in sprecip)} "
+          f"mm/day, budget source {src:+.3e} kg/m2, step 1 equal to the "
+          f"plain single step")
+    return step_s
+
+
+def phase_refusal(params):
+    """K1 on the card with a pack that requires grad raises."""
+    import torch
+
+    from cloudsc_tpu_torch import data
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    inp = data.load_input(data.default_input_path(), RAGGED_NCOL)
+    driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                           device="cuda", backend="cuda")
+    p = driver.prepare(inp).to("cuda")
+    p.pack.requires_grad_(True)
+    before = _kernel_counts()
+    try:
+        cc.cloudsc_fused(p, driver.step.c, driver.step.consts)
+    except RuntimeError as e:
+        if "--kernel scan" not in str(e):
+            raise
+        print(f"phase refusal: K1 with an input that requires grad raised: "
+              f"{e}")
+    else:
+        raise RuntimeError("K1 took an input that requires grad")
+    if _kernel_counts() != before:
+        raise RuntimeError("the refused call launched a kernel")
+
+
+def phase_pmon(inp, params):
+    """The main path with EC_PMON=1: the energy line from NVML, positive
+    joules. Returns {tag: (joules a step, watts at the end, ms a step)}."""
+    import re
+
+    import torch
+
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    results = {}
+    had = os.environ.get("EC_PMON")
+    os.environ["EC_PMON"] = "1"
+    try:
+        for dtype in (torch.float64, torch.float32):
+            tag = "fp64" if dtype == torch.float64 else "fp32"
+            driver = CloudscDriver(params, inp.ptsphy, dtype=dtype,
+                                   device="cuda")
+            _, timings, _ = driver.run(inp, iterations=PMON_ITERATIONS,
+                                       fetch_outputs=False)
+            line = timings.energy_line
+            m = re.fullmatch(r" EC_PMON: energy delta (\S+) J, power (\S+) W",
+                             line or "")
+            if not m or not float(m.group(1)) > 0.0:
+                raise RuntimeError(f"pmon {tag}: energy line {line!r}")
+            print(f"main path {tag}, {PMON_ITERATIONS} steps:{line}")
+            results[tag] = (float(m.group(1)) / PMON_ITERATIONS,
+                            float(m.group(2)), timings.compute_s * 1e3)
+    finally:
+        if had is None:
+            del os.environ["EC_PMON"]
+        else:
+            os.environ["EC_PMON"] = had
+    return results
+
+
 def over_jax_reading(errs) -> dict:
     """fp64 fields (validate.FieldErrors) whose MaxRelErr is above both the
     10*eps flag bar and the JAX engine's own reading at 163,840 columns."""
@@ -802,6 +1092,25 @@ def main() -> int:
     t_scan, run_scan = phase_scan(inp, params, ref_dev)
     del ref_dev
     torch.cuda.empty_cache()
+
+    # the differentiable path and the loop: one plain fp64 field dict,
+    # expanded on the card, for all four phases; no hand-written kernel
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    fields = fields_on_device(inp, torch.float64, "cuda")
+    before = _kernel_counts()
+    g, adj_s, adj_blocks, adj_peak = phase_adjoint(inp, params, fields)
+    jvp_s, fwd_s = phase_tangent(inp, params, fields, g)
+    del g
+    par_s = phase_parameter(inp, params, fields)
+    loop_s = phase_timestep_loop(inp, params, fields)
+    if _kernel_counts() != before:
+        raise RuntimeError(f"the differentiable path moved a kernel count: "
+                           f"{before} -> {_kernel_counts()}")
+    del fields
+    torch.cuda.empty_cache()
+    phase_refusal(params)
+    pmon = phase_pmon(inp, params)
     lab_counts = phase5_lab_path()
 
     nlev = inp.klev
@@ -832,6 +1141,17 @@ def main() -> int:
           f"(CUDA events over 1 step after a warm-up step of "
           f"{t_scan.compile_s:.3f} s); h2d {t_scan.h2d_s:.3f} s; driver.run "
           f"{run_scan:.3f} s")
+    print(f"timing adjoint fp64 [{card}]: d(scalar head)/d(pt) at {NGPTOT} "
+          f"columns {adj_s:.3f} s in {adj_blocks} blocks, peak "
+          f"{adj_peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"jvp of one block {jvp_s:.3f} s, its forward value {fwd_s:.3f} s; "
+          f"two parameter gradients at {NGPTOT} columns {par_s:.3f} s; "
+          f"timestep loop {loop_s:.3f} s a step (host clock, synchronised)")
+    for tag, (joules, watts, ms) in pmon.items():
+        print(f"timing energy {tag} [{card}]: {joules:.4f} J a K1 step "
+              f"({ms:.4f} ms a step over {PMON_ITERATIONS} steps of the "
+              f"driver loop, NVML total energy; {joules / (ms * 1e-3):.0f} W "
+              f"mean, {watts:.0f} W at the end)")
     for name, rec in vk.items():
         for tag in ("fp32", "fp64"):
             r = rec[tag]

@@ -16,6 +16,8 @@ On the card the outputs stay there and are validated there (the norms of
 `validate.device_field_norms` against the reference expanded on the card);
 only the (21, 5) norms reach the host. With `--device cpu` the host
 validates the fetched fields.
+With EC_PMON set in the environment the energy line of `runtime.pmon` (the
+card's, from NVML) follows the timing line.
 
 Usage:
     python -m cloudsc_tpu_torch 1 163840 128 [--precision fp32|fp64]
@@ -118,6 +120,8 @@ def main(argv=None) -> int:
         f" {timings.h2d_s * 1e3:9.3f} ms | d2h: {timings.d2h_s * 1e3:9.3f} ms |"
         f" compile: {timings.compile_s:7.3f} s"
     )
+    if timings.energy_line:  # EC_PMON (ref: cloudsc_driver_mod.F90:170-178)
+        print(timings.energy_line)
     if not args.no_validate:
         ref_path = args.reference or data.default_reference_path()
         if on_card:

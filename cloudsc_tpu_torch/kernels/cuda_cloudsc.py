@@ -430,6 +430,18 @@ def check_kernel_args(p: FoldedPack, c) -> None:
                          "device")
 
 
+def refuse_grad(*tensors) -> None:
+    """Raise if autograd is recording and a tensor requires grad: the fused
+    kernel has no backward (as `jax.grad` through `pallas_call` raises), and
+    its outputs would come back cut off from the graph."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the fused CLOUDSC kernel is not differentiable: an input "
+            "requires grad. Differentiate through the eager engine instead "
+            "(physics.autodiff, backend='scan', --kernel scan)")
+
+
 def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
                   mode: str = "full", lib=None):
     """One CLOUDSC step on the folded pack -> (o_lev (nlev, 9, ncol),
@@ -437,10 +449,12 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
     `mode` "floor" or "init" runs the diagnostic body instead of the
     physics. A CUDA pack launches the kernel (or raises); a CPU pack runs
     the plain version. `lib` is a library from `build.load_library` (if
-    None, the build of `c`'s scheme version, `kernel_version(c)`)."""
+    None, the build of `c`'s scheme version, `kernel_version(c)`). An input
+    that requires grad is refused on either device (`refuse_grad`)."""
     global LAUNCHES, FLOOR_LAUNCHES, INIT_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
+    refuse_grad(p.pack, p.col, consts)
     if p.pack.device.type == "cpu":
         if mode == "floor":
             return cloudsc_floor_plain(p)

@@ -154,10 +154,27 @@ def make_inputs(inp, dtype=torch.float64, column_order: str = "cyclic",
             **flags}
 
 
-def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
+def fields_on_device(inp, dtype, device) -> dict:
+    """`make_inputs`' plain field dict (cyclic column order) on `device`,
+    expanded there: only the file-width arrays cross from the host, and
+    column j takes file column j % klon, as the host expansion gives it."""
+    import dataclasses
+
+    narrow = make_inputs(dataclasses.replace(
+        inp, ngptot=min(inp.ngptot, inp.klon_file)), dtype)
+    idx = torch.arange(inp.ngptot, device=device) % inp.klon_file
+    return {k: v.to(device).index_select(v.ndim - 1, idx)
+            for k, v in narrow.items()}
+
+
+def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
     """One CLOUDSC step over every column of a `make_inputs` field dict
     (plain or folded), on the fields' device. `config` selects the scheme
-    version (scheme.SchemeConfig; the reference configuration if None)."""
+    version (scheme.SchemeConfig; the reference configuration if None).
+    Every operation is a torch operation on the fields, so the step
+    differentiates in reverse and forward mode with respect to any float
+    field, and to `ptsphy` or a float of `params` given as a tensor
+    (`scheme.derived_consts`; `physics.autodiff` holds the entry points)."""
     folded = "ztp1_in" in fields
     pt = fields["ztp1_in"] if folded else fields["pt"]
     dtype, dev = pt.dtype, pt.device
@@ -208,6 +225,9 @@ def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
     ktop = c.NCLDTOP - 1           # 0-based first level of the loop
     zqtmst = c.zqtmst
 
+    # the two level flags as device scalars, made once
+    flag = {b: torch.tensor(b, device=dev) for b in (False, True)}
+
     def make_x(k):
         """Level k's view: rows at k, and at k-1 / k+1 where the scheme
         reads them, the index clamped to the array as the JAX scan's
@@ -225,38 +245,50 @@ def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
             zqx=[ini["zqx"][m][k] for m in range(NCLV)],
             paph_surf=paph_surf, land=land, ldcum=fields["ldcum"],
             ktype=fields["ktype"],
-            not_first=torch.tensor(k > ktop, device=dev),
-            not_last=torch.tensor(k < nlev - 1, device=dev))
+            not_first=flag[k > ktop], not_last=flag[k < nlev - 1])
         return x
 
     # ==================================================================
-    # 3-6. THE LEVEL LOOP (ref: 854-2775), written into the full-level
-    # arrays as it goes
+    # 3-6. THE LEVEL LOOP (ref: 854-2775). Each level's rows are collected
+    # and stacked under the rows above cloud top (zero, or the section-1
+    # value), with no write into an existing array: reverse and forward
+    # mode then see one stack a field, not a chain of slice updates.
     # ==================================================================
-    zqxn = pt.new_zeros((NCLV, nlev, ncol))
-    zpfplsx = pt.new_zeros((nlev + 1, NCLV, ncol))
-    plude = fields["plude"].clone()
-    pcovptot = pt.new_zeros((nlev, ncol))
-    tend_t = ini["tend_t_pre"].clone()
-    tend_q = ini["tend_q_pre"].clone()
-    tend_a = pt.new_zeros((nlev, ncol))
+    zero_row = pt.new_zeros((ncol,))
+    ys_rows = {n: [] for n in ("plude", "pcovptot", "tend_t", "tend_q",
+                               "tend_a")}
+    zqxn_rows = [[] for _ in range(NCLV)]
+    pfplsx_rows = [[] for _ in range(NCLV)]
     carry = scheme.initial_carry(ini["ztp1"][0], c)
     for k in range(ktop, nlev):
         carry, ys = scheme.level_step(make_x(k), carry, c)
+        for n, acc in ys_rows.items():
+            acc.append(ys[n])
         for m in range(NCLV):
-            zqxn[m, k] = ys["zqxn"][m]
-            # half level k+1 receives level k's flux (ref: 687, 2698-2702)
-            zpfplsx[k + 1, m] = ys["pfplsx_next"][m]
-        plude[k] = ys["plude"]
-        pcovptot[k] = ys["pcovptot"]
-        tend_t[k] = ys["tend_t"]
-        tend_q[k] = ys["tend_q"]
-        tend_a[k] = ys["tend_a"]
+            zqxn_rows[m].append(ys["zqxn"][m])
+            pfplsx_rows[m].append(ys["pfplsx_next"][m])
+
+    def levels(acc, above):
+        """The full-level array: `above` over the levels down to cloud top
+        (one zero row broadcast if `above` is a count), then the loop's."""
+        if isinstance(above, int):
+            above = zero_row.expand(above, ncol)
+        return torch.cat([above, torch.stack(acc)])
+
+    zqxn = [levels(zqxn_rows[m], ktop) for m in range(NCLV)]
+    # half level k+1 receives level k's flux (ref: 687, 2698-2702)
+    zpfplsx = [levels(pfplsx_rows[m], ktop + 1) for m in range(NCLV)]
+    plude = levels(ys_rows["plude"], fields["plude"][:ktop])
+    pcovptot = levels(ys_rows["pcovptot"], ktop)
+    tend_t = levels(ys_rows["tend_t"], ini["tend_t_pre"][:ktop])
+    tend_q = levels(ys_rows["tend_q"], ini["tend_q_pre"][:ktop])
+    tend_a = levels(ys_rows["tend_a"], ktop)
 
     zqx0 = ini["zqx0"]
-    tend_cld = pt.new_zeros((NCLV, nlev, ncol))
-    for m in (IL, II, IR, IS):
-        tend_cld[m, ktop:] = (zqxn[m, ktop:] - zqx0[m][ktop:]) * zqtmst
+    tend_cld = torch.stack(
+        [torch.cat([zero_row.expand(ktop, ncol),
+                    (zqxn[m][ktop:] - zqx0[m][ktop:]) * zqtmst])
+         for m in (IL, II, IR, IS)] + [zero_row.expand(nlev, ncol)])
 
     # ==================================================================
     # 8. flux diagnostics (ref: 2788-2867)
@@ -264,24 +296,24 @@ def cloudsc(fields: dict, params, ptsphy: float, config=None) -> CloudscOutputs:
     paph = fields["paph"]
     pvfl, pvfi, zfoealfa = fields["pvfl"], fields["pvfi"], ini["zfoealfa"]
     zlneg = ini["zlneg"]
-    pfplsl = zpfplsx[:, IR] + zpfplsx[:, IL]
-    pfplsn = zpfplsx[:, IS] + zpfplsx[:, II]
+    pfplsl = zpfplsx[IR] + zpfplsx[IL]
+    pfplsn = zpfplsx[IS] + zpfplsx[II]
     zgdph_r = -c.zrg_r * (paph[1:] - paph[:-1]) * zqtmst   # (nlev, ncol)
     liq_inc = (zqxn[IL] - zqx0[IL] + pvfl * ptsphy - zfoealfa * plude) * zgdph_r
     ice_inc = (zqxn[II] - zqx0[II] + pvfi * ptsphy
                - (1.0 - zfoealfa) * plude) * zgdph_r
     rain_inc = (zqxn[IR] - zqx0[IR]) * zgdph_r
     snow_inc = (zqxn[IS] - zqx0[IS]) * zgdph_r
-    zero_row = pt.new_zeros((1, ncol))
+    top_row = zero_row[None]
 
     def half_cumsum(inc):
         """PF(jk+1) = sum_{j<=jk} inc(j); PF(0) = 0 (ref: 2798-2857)."""
-        return torch.cat([zero_row, torch.cumsum(inc, dim=0)])
+        return torch.cat([top_row, torch.cumsum(inc, dim=0)])
 
     def after(prev, inc):
         """Rain/snow accumulate onto the liquid/ice flux of the level above
         (ref: 2818-2819)."""
-        return torch.cat([zero_row, prev[:-1] + inc])
+        return torch.cat([top_row, prev[:-1] + inc])
 
     pfsqlf = half_cumsum(liq_inc)
     pfsqif = half_cumsum(ice_inc)

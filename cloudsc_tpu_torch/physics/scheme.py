@@ -89,8 +89,12 @@ def mn(a, b):
     return torch.clamp(b, max=a)
 
 
-def sel2(mask, a: float, b: float, like):
-    """where(mask, a, b) for two Python scalars, in `like`'s dtype."""
+def sel2(mask, a, b, like):
+    """where(mask, a, b) for two scalars, in `like`'s dtype. Each is a Python
+    float or a parameter tensor (0-d or `(ncol,)`, which keeps its
+    gradient)."""
+    if torch.is_tensor(a):
+        return torch.where(mask, a, b)
     return torch.where(mask, torch.full_like(like, a), b)
 
 
@@ -101,14 +105,25 @@ def madd(mask, v):
 # Division with a Python-scalar operand, rounded once as JAX rounds it:
 # `scalar / tensor` in torch is reciprocal-then-multiply, and CUDA turns
 # `tensor / scalar` into a multiply by the reciprocal; a 0-d tensor on the
-# operand's device keeps both a true IEEE division.
+# operand's device keeps both a true IEEE division. A scalar that is already
+# a tensor (a parameter under differentiation, on the operand's device)
+# divides as it is, which is the same division.
 
-def rdiv(s: float, t):
-    return t.new_full((), s) / t
+def rdiv(s, t):
+    return (s if torch.is_tensor(s) else t.new_full((), s)) / t
 
 
-def div(t, s: float):
-    return t / t.new_full((), s)
+def div(t, s):
+    return t / (s if torch.is_tensor(s) else t.new_full((), s))
+
+
+def sdiv(a, b):
+    """a / b for two scalars: Python's division for two floats; a true
+    tensor division as soon as one is a parameter tensor (`float / tensor`
+    would be reciprocal-then-multiply, two roundings)."""
+    if torch.is_tensor(a):
+        return div(a, b)
+    return rdiv(a, b) if torch.is_tensor(b) else a / b
 
 
 def inert_skip(mask, active_fn, ops, force=False):
@@ -145,15 +160,19 @@ class SchemeConfig(SimpleNamespace):
                          dynamic_skips=bool(dynamic_skips))
 
 
-def derived_consts(params, ptsphy: float, dtype,
+def derived_consts(params, ptsphy, dtype,
                    config: SchemeConfig | None = None) -> SimpleNamespace:
     """Scalar constants shared by every section (the ASSOCIATE block +
     derived values, ref: cloudsc.F90:503-545, 585-591), as plain Python
-    floats/ints/bools from the shared `cloudsc_tpu.params.Params`."""
+    floats/ints/bools from `params.Params`. `ptsphy` and any float of
+    `params` may instead be a tensor of the working dtype on the fields'
+    device, 0-d or `(ncol,)` (a parameter under differentiation, or one
+    value a column): it passes through with its gradient, and the derived
+    values divide it as the floats divide."""
     cst, thf, e = params.ydcst, params.ydthf, params.ydecldp
     c = SimpleNamespace()
     c.cst, c.thf, c.e = cst, thf, e
-    c.ptsphy = float(ptsphy)
+    c.ptsphy = ptsphy if torch.is_tensor(ptsphy) else float(ptsphy)
     c.RG, c.RD, c.RCPD, c.RETV = cst.rg, cst.rd, cst.rcpd, cst.retv
     c.RLVTT, c.RLSTT, c.RLMLT = cst.rlvtt, cst.rlstt, cst.rlmlt
     c.RTT, c.RV = cst.rtt, cst.rv
@@ -169,7 +188,7 @@ def derived_consts(params, ptsphy: float, dtype,
     cfg = config or SchemeConfig()
     c.IWARMRAIN, c.IEVAPRAIN = cfg.iwarmrain, cfg.ievaprain
     c.IEVAPSNOW, c.IDEPICE = cfg.ievapsnow, cfg.idepice
-    c.zqtmst = 1.0 / c.ptsphy
+    c.zqtmst = sdiv(1.0, c.ptsphy)
     c.zrdcp = c.RD / c.RCPD
     c.zrg_r = 1.0 / c.RG
     c.zrldcp = 1.0 / (c.RALSDCP - c.RALVDCP)
@@ -372,7 +391,7 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
     zfokoop = x["zfokoop"]
     warm_or_off = (ztp1 >= RTT) | (NSSOPT == 0)
     zfac = torch.where(warm_or_off, 1.0, za + zfokoop * (1.0 - za))
-    zfaci = sel2(warm_or_off, 1.0, ptsphy / e.rkooptau, ztp1)
+    zfaci = sel2(warm_or_off, 1.0, sdiv(ptsphy, e.rkooptau), ztp1)
 
     high_a = za > 1.0 - e.ramin
     zsup_cld = mx((zqx[IV] - zfac * zqsice) / zcorqsice, 0.0)

@@ -14,9 +14,13 @@ README.md:311-318). Two engines (`backend`):
     cyclic column order, padded to a multiple of NPROMA, on the driver's
     device.
 
-A configuration the kernel does not take raises and names the scan engine;
-nothing falls back silently. `device="cuda"` raises when there is no CUDA
-device; only an explicit `device="cpu"` runs on the host.
+A configuration the kernel does not take raises and names the scan engine,
+as does a parameter that requires grad (the kernel has no backward;
+`physics.autodiff` differentiates the engine); nothing falls back silently.
+`device="cuda"` raises when there is no CUDA device; only an explicit
+`device="cpu"` runs on the host. With EC_PMON set, `run` samples the
+device's energy around the timed loop (`runtime.pmon`; a CUDA device through
+NVML) into `Timings.energy_line`.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ import torch
 
 from ..data.expand import activity_perm, group_inverse
 from ..kernels.cuda_cloudsc import FusedStep, assemble, check_kernel_config, \
-    pack_inputs_folded
+    pack_inputs_folded, refuse_grad
 from ..physics.cloudsc import CloudscOutputs, cloudsc, make_inputs
+from .pmon import EnergySampler
 from .timer import PerformanceTimer, Timings
 
 BACKENDS = ("auto", "cuda", "scan")
@@ -58,9 +63,11 @@ class CloudscDriver:
         self.dtype = dtype
         self.scheme_config = scheme_config
         self.nproma = max(int(nproma), 1)
-        self.step = FusedStep(params, ptsphy, dtype, scheme_config).to(
-            self.device)
+        self.step = None
         if backend != "scan":
+            refuse_grad(ptsphy, *vars(params.ydecldp).values())
+            self.step = FusedStep(params, ptsphy, dtype, scheme_config).to(
+                self.device)
             try:
                 check_kernel_config(self.step.c)
             except ValueError as e:
@@ -141,6 +148,11 @@ class CloudscDriver:
         timings.compile_s = time.perf_counter() - t0
 
         timer = PerformanceTimer(ndevices=1)
+        # energy sampling around the hot loop, gated by EC_PMON like the
+        # reference (ref: ec_pmon_mod.F90:14-57, cloudsc_driver_mod.F90:
+        # 170-178); the loop below ends synchronised on either device
+        sampler = EnergySampler(self.device)
+        sampler.start()
         timer.start()
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
@@ -161,6 +173,7 @@ class CloudscDriver:
                 res = self._call(payload)
             timings.compute_s = (time.perf_counter() - t0) / iterations
         timer.end()
+        timings.energy_line = sampler.stop_and_report()
         timer.log(0, timings.compute_s * iterations, ncol * iterations)
 
         if self.backend == "scan":

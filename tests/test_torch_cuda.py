@@ -321,3 +321,59 @@ def test_probe_kernels_refuse_bad_arguments(cuda):
     assert cp.OVERLAP_LAUNCHES == before
     with pytest.raises(ValueError, match="probe takes"):
         cp.dma_copy(x, col, cp.contig_probe(32, 7))
+
+
+# ---- the differentiable path and the energy monitor on the card --------------
+
+def test_kernel_refuses_a_gradient_on_the_card(snapshot, cuda):
+    """K1 has no backward: a pack that requires grad raises before any
+    launch, and names the scan engine."""
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    inp, params = snapshot
+    drv = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                        device="cuda", backend="cuda")
+    p = drv.prepare(inp).to(cuda)
+    p.pack.requires_grad_(True)
+    before = cc.LAUNCHES
+    with pytest.raises(RuntimeError, match="--kernel scan"):
+        cc.cloudsc_fused(p, drv.step.c, drv.step.consts)
+    assert cc.LAUNCHES == before
+
+
+def test_adjoint_of_expanded_columns_equals_source_columns(snapshot, cuda):
+    """The card's elementwise arithmetic does not depend on a column's
+    position: at 1000 columns in blocks of 400 (each holding every snapshot
+    column) every column's gradient is its source column's, bit for bit."""
+    from cloudsc_tpu_torch.bench.grad_blocks import scalar_head
+    from cloudsc_tpu_torch.physics import autodiff
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    inp, params = snapshot
+    wide = fields_on_device(inp, torch.float64, cuda)
+    src = fields_on_device(tdata.load_input(tdata.default_input_path(), 100),
+                           torch.float64, cuda)
+    g = autodiff.grad(scalar_head, wide, params, inp.ptsphy, ("pt",),
+                      device=cuda, block_columns=400)["pt"]
+    g100 = autodiff.grad(scalar_head, src, params, inp.ptsphy, ("pt",),
+                         device=cuda)["pt"]
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0.0
+    assert torch.equal(g, g100[:, torch.arange(NCOL, device=cuda) % 100])
+
+
+def test_energy_sampler_reads_nvml(cuda, monkeypatch):
+    """With EC_PMON set the sampler reads the card's own counters: the
+    energy counter does not run backwards and the card draws power."""
+    from cloudsc_tpu_torch.runtime import pmon
+
+    monkeypatch.setenv("EC_PMON", "1")
+    sampler = pmon.EnergySampler(cuda)
+    e0, p0 = pmon.energy_power(sampler._source)
+    x = torch.ones(1 << 26, device=cuda)
+    for _ in range(200):
+        x.mul_(1.0)
+    torch.cuda.synchronize()
+    e1, _ = pmon.energy_power(sampler._source)
+    assert e1 >= e0 > 0.0 and p0 > 0.0
+    sampler.start()
+    assert sampler.stop_and_report().startswith(" EC_PMON: energy delta ")

@@ -43,7 +43,7 @@ def _run(args, **kw):
 
 def test_port_never_imports_jax():
     """Importing every module of the package and chip_smoke, and running the
-    CPU driver, leaves JAX and the JAX package out of sys.modules (needs a
+    CPU driver, an adjoint and the fp64 attribution, leaves JAX and the JAX package out of sys.modules (needs a
     fresh process: conftest imports both here)."""
     code = (
         "import sys, torch\n"
@@ -62,6 +62,13 @@ def test_port_never_imports_jax():
         "cloudsc_tpu_torch.physics.satfold, cloudsc_tpu_torch.validate, "
         "cloudsc_tpu_torch.physics.cloudsc, "
         "cloudsc_tpu_torch.data.synthetic\n"
+        "import cloudsc_tpu_torch.physics.autodiff, "
+        "cloudsc_tpu_torch.runtime.pmon, "
+        "cloudsc_tpu_torch.bench.fp64_attribution, "
+        "cloudsc_tpu_torch.bench.grad_blocks\n"
+        "import cloudsc_tpu_torch.examples.adjoint_sensitivity, "
+        "cloudsc_tpu_torch.examples.param_calibration, "
+        "cloudsc_tpu_torch.examples.timestep_loop\n"
         "import chip_smoke\n"
         "from cloudsc_tpu_torch.params import Params\n"
         "from cloudsc_tpu_torch.runtime.driver import CloudscDriver\n"
@@ -75,6 +82,11 @@ def test_port_never_imports_jax():
         "dtype=torch.float64, device='cpu', backend='scan')\n"
         "out, _, _ = drv.run(inp, fetch_outputs=False)\n"
         "assert out.plude.shape == (137, 16)\n"
+        "g = cloudsc_tpu_torch.examples.adjoint_sensitivity.sensitivity("
+        "8, 'cpu')\n"
+        "assert g.shape == (137, 8)\n"
+        "assert cloudsc_tpu_torch.bench.fp64_attribution.attribute("
+        "8, 'cpu')[0][0] == 'PLUDE'\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'cloudsc_tpu') "
         "or m.startswith(('jax.', 'jaxlib', 'cloudsc_tpu.')))\n"
         "print('JAXMODS', bad)\n"
@@ -257,7 +269,12 @@ def test_port_sources_import_no_jax_package():
     of chip_smoke names JAX or the JAX package, whichever branch it sits
     in."""
     files = sorted((ROOT / "cloudsc_tpu_torch").rglob("*.py"))
-    assert ROOT / "cloudsc_tpu_torch" / "bench" / "overlap_probe.py" in files
+    for rel in ("bench/overlap_probe.py", "bench/fp64_attribution.py",
+                "bench/grad_blocks.py", "physics/autodiff.py",
+                "runtime/pmon.py", "examples/__init__.py",
+                "examples/adjoint_sensitivity.py",
+                "examples/param_calibration.py", "examples/timestep_loop.py"):
+        assert ROOT / "cloudsc_tpu_torch" / rel in files, rel
     files.append(ROOT / "chip_smoke.py")
     bad = {}
     for f in files:
