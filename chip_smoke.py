@@ -13,8 +13,11 @@ failed check (the script then exits non-zero and prints no result):
      ptxas registers and spills), K1's ring geometry and occupancy in each
      precision and build (S, BLOCK, MIN_BLOCKS, dynamic shared memory,
      registers, spills, blocks an SM; the library's geometry must be
-     `cuda_cloudsc.RING`, every build at least one block an SM), and about
-     a second of streaming to bring the clocks up;
+     `cuda_cloudsc.RING`, every build at least one block an SM), K3's
+     copy ring (S, bytes a stage, CTAs an SM, dynamic shared memory,
+     registers and spills; it must be `cuda_probes.COPY_RING` with its CTAs
+     fitting an SM), and about a second of streaming to bring the clocks
+     up;
   1. the fused kernel against its plain PyTorch version on the main path's
      own pack (`CloudscDriver.prepare`: activity-sorted grouped columns,
      163,840 columns x 137 levels), fp64 (errsum/refsum < FP64_TOL per
@@ -29,7 +32,8 @@ failed check (the script then exits non-zero and prints no result):
      sweeps by default, max-abs/max-ref <= 1e-6 (bitwise expected), and its
      times;
   1c. the copy probe (K3) against x * 1.0000001, contig32...4096, strided
-     and tilemajor at the lab's default size, bitwise, and their GB/s;
+     and tilemajor at the lab's default size and strided at sb 1 (K1's
+     512-byte runs), bitwise, and their GB/s;
   1d. K1's scheme versions (`data.synthetic.VERSION_CASES`: the four single
      alternates of the reference configuration and the aerosol build, each
      on the input that takes its branch) at 163,840 columns, fp64 and fp32:
@@ -247,6 +251,20 @@ def phase0_environment(versions):
                   f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
                   f"stack (ptxas); {occ['blocks_per_sm']} blocks an SM "
                   f"({occ['blocks_per_sm'] * occ['block'] // 32} warps)")
+    from cloudsc_tpu_torch.kernels import cuda_probes as cp
+
+    geo, r = cp.copy_geometry(), info["ptxas"]["copy"]
+    ring = cp.COPY_RING
+    if (geo["stages"], geo["chunk"], geo["ctas"]) != \
+            (ring.stages, ring.chunk, ring.ctas) \
+            or geo["blocks_per_sm"] < ring.ctas:
+        raise RuntimeError(f"K3: the library runs {geo}, COPY_RING is {ring}")
+    print(f"K3 copy ring: S={geo['stages']}, CHUNK={geo['chunk']} B, "
+          f"{geo['ctas']} CTAs an SM of {geo['blocks_per_sm']} that fit, "
+          f"{geo['sms']} SMs, {geo['threads']} threads a CTA, dynamic shared "
+          f"memory {geo['smem_bytes']} B a CTA; {r['registers']} registers, "
+          f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill "
+          f"loads, {r['stack']} B stack (ptxas)")
     # bring the clocks up before anything is timed (~1 s of streaming)
     x = torch.ones(1 << 28, device="cuda")
     for _ in range(1000):
@@ -492,7 +510,9 @@ def phase1c_copy_probe():
 
     col = torch.rand(cp.COL_SHAPE, device="cuda")
     results = {}
-    for probe in db.probes(db.parse_args([])):
+    sb1 = db.probes(db.parse_args(["--sb", "1", "--only", "strided"]))
+    for key, probe in [(p.name, p) for p in db.probes(db.parse_args([]))] \
+            + [("strided sb=1", sb1[0])]:
         x = torch.rand(probe.shape, device="cuda")
         before = cp.COPY_LAUNCHES
         got = cp.dma_copy(x, col, probe)
@@ -500,12 +520,12 @@ def phase1c_copy_probe():
         if cp.COPY_LAUNCHES - before != 1:
             raise RuntimeError("dma_copy did not count 1 launch")
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise RuntimeError(f"copy {probe.name}: kernel != x * 1.0000001")
+            raise RuntimeError(f"copy {key}: kernel != x * 1.0000001")
         max_abs = max(float((g - h).abs().max()) for g, h in zip(got, want))
         del got, want
         ms = _event_ms(lambda: cp.dma_copy(x, col, probe), ITERATIONS)
         plain_ms = _event_ms(lambda: cp.dma_copy_plain(x, col), ITERATIONS)
-        results[probe.name] = (ms, plain_ms, 2 * x.numel() * 4, max_abs)
+        results[key] = (ms, plain_ms, 2 * x.numel() * 4, max_abs)
         del x
         torch.cuda.empty_cache()
     print(f"phase 1c: copy kernel == x * 1.0000001 bitwise for "

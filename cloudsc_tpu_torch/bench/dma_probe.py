@@ -1,7 +1,8 @@
 """Copy probe: the card's read+write bandwidth against run length.
 
-Each thread block of the copy kernel (`out = in * 1.0000001`) copies the
-runs of one TPU grid step of the JAX probe, at the same volume:
+The copy kernel (K3, `out = in * 1.0000001`) copies the runs of each TPU
+grid step of the JAX probe, at the same volume, as TMA bulk copies through
+a ring in shared memory (`cuda_probes.COPY_RING`):
 
   contig<N>   one contiguous run of N*128 floats a block: the pure
               run-length curve
@@ -12,14 +13,20 @@ runs of one TPU grid step of the JAX probe, at the same volume:
               128): one run of lps*rows*SB*128 floats a block, the same
               blocks and bytes as strided
 
-Timing: one warm-up launch, then `--iters` back-to-back launches between
-CUDA events; nothing is subtracted. `bytes_per_iter` is the array read and
-written once.
+Each probe's kernel output is checked bit for bit against the plain
+version (`dma_copy_plain`, one PyTorch call, x * 1.0000001) on a seeded
+uniform input; then both are timed: one warm-up launch, then `--iters`
+back-to-back launches between CUDA events, nothing subtracted
+(`ms_per_iter`, `library_ms_per_iter`). `bytes_per_iter` is the array read
+and written once.
 
     python -m cloudsc_tpu_torch.bench.dma_probe [--iters 20] [--sb 32]
         [--lps 3] [--rows 18] [--nblk 1280] [--nlev 138]
         [--contig 32 128 512 1728 4096] [--only contig strided tilemajor]
         [--out FILE]
+
+Exits 1 without a card, and 2 if a kernel output is not bitwise equal to
+the plain version.
 """
 
 from __future__ import annotations
@@ -78,22 +85,34 @@ def probes(a) -> list:
     return out
 
 
-def measure(probe, iters) -> dict:
-    x = torch.ones(probe.shape, device="cuda")
-    col = torch.ones(cp.COL_SHAPE, device="cuda")
+def measure(probe, x, col, iters) -> dict:
+    """The kernel against the plain version on (x, col), bit for bit, and
+    both timed."""
+    got = cp.dma_copy(x, col, probe)
+    want = cp.dma_copy_plain(x, col)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    del got, want
     ms = timing.event_ms(lambda: cp.dma_copy(x, col, probe), iters)
+    lib_ms = timing.event_ms(lambda: cp.dma_copy_plain(x, col), iters)
     nbytes = int(np.prod(probe.shape)) * 4 * 2
-    rec = dict(name=probe.name, grid=list(probe.grid), block=list(probe.block),
-               bytes_per_iter=nbytes, ms_per_iter=ms,
-               gb_per_s=nbytes / (ms * 1e-3) / 1e9)
-    print(json.dumps(rec), flush=True)
-    return rec
+    return dict(name=probe.name, grid=list(probe.grid),
+                block=list(probe.block), run_bytes=4 * probe.run_len,
+                bytes_per_iter=nbytes, bitwise=bitwise, ms_per_iter=ms,
+                gb_per_s=nbytes / (ms * 1e-3) / 1e9,
+                library_ms_per_iter=lib_ms,
+                library_gb_per_s=nbytes / (lib_ms * 1e-3) / 1e9)
 
 
 def run(a) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
+    col = torch.rand(cp.COL_SHAPE, device="cuda", generator=gen)
     for probe in probes(a):
-        records.append(measure(probe, a.iters))
+        x = torch.rand(probe.shape, device="cuda", generator=gen)
+        rec = measure(probe, x, col, a.iters)
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+        del x
         torch.cuda.empty_cache()
     return records
 
@@ -106,6 +125,10 @@ def main(argv=None) -> int:
     records = run(a)
     if a.out:
         Path(a.out).write_text(json.dumps(records, indent=2))
+    if not all(r["bitwise"] for r in records):
+        print("dma_probe: a kernel output differs from the plain version",
+              file=sys.stderr)
+        return 2
     return 0
 
 

@@ -1,13 +1,17 @@
 """The input snapshot and its golden outputs.
 
-Counterpart of `cloudsc_tpu/data/io.py` for one process. The port reads the
-100-column snapshot and the golden outputs from numpy archives
-(`data/input.npz`, `data/reference.npz`, written from the `.h5` mirrors by
+Counterpart of `cloudsc_tpu/data/io.py`. The port reads the 100-column
+snapshot and the golden outputs from numpy archives (`data/input.npz`,
+`data/reference.npz`, written from the `.h5` mirrors by
 `python -m cloudsc_tpu_torch.data`), so a GPU host needs no HDF5 library; an
-`.h5` mirror is read with h5py where it is installed. Arrays keep the
-mirror's layout: (lev, col), (nclv, lev, col), (lev+1, col), columns last.
+`.h5` mirror is read with h5py where it is installed, and a directory as
+the reference's raw Serialbox archive (`serialbox.py`, numpy only). Arrays
+keep the mirror's layout: (lev, col), (nclv, lev, col), (lev+1, col),
+columns last. Both loaders take the JAX loaders' per-rank arguments
+(`ngptotg`, `rank`, `nranks`; `expand.get_offsets`).
 
-tests/test_torch_driver.py holds both loaders equal to the JAX package's.
+tests/test_torch_driver.py and tests/test_torch_data.py hold the loaders
+equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
-from .expand import expand_field
+from .expand import expand_field, get_offsets
+from .serialbox import SerialboxArchive, load_input_archive
 
 # Input fields consumed by the scheme, in the reference load order
 # (ref: cloudsc_global_state_mod.F90:188-227).
@@ -86,10 +91,7 @@ def _read_h5(path) -> tuple[dict, dict]:
     return fields, scalars
 
 
-def _read(path) -> tuple[dict, dict]:
-    """(fields, scalars) of an .npz archive or an .h5 mirror."""
-    if not str(path).endswith(".npz"):
-        return _read_h5(path)
+def _read_npz(path) -> tuple[dict, dict]:
     with np.load(path, allow_pickle=False) as z:
         fields = {k: z[k] for k in z.files if k != _SCALARS_KEY}
         scalars = json.loads(str(z[_SCALARS_KEY])) if _SCALARS_KEY in z.files \
@@ -97,28 +99,90 @@ def _read(path) -> tuple[dict, dict]:
     return fields, scalars
 
 
-def load_input(path, ngptot: int | None = None) -> InputData:
-    """The input snapshot at file width, for a run of `ngptot` columns."""
-    raw, scalars = _read(path)
-    klon = int(scalars["KLON"])
+# parameter tables stored as fields, not per-column data: never sliced or
+# expanded (ref: yoecldp.F90:358-366 loads YRECLDP_RBETA(0:100))
+_TABLES = ("YRECLDP_RBETA", "YRECLDP_RBETAP1")
+
+
+def _read(path, col_slice: tuple[int, int] | None = None
+          ) -> tuple[dict, dict]:
+    """(fields, scalars) of a Serialbox directory, an .npz archive or an
+    .h5 mirror; `col_slice=(start, count)` cuts the per-column fields to
+    those file columns. A directory reads only the slice (a memmap a
+    field); an .npz or .h5 file is read whole and then sliced."""
+    if Path(path).is_dir():
+        return load_input_archive(path, "input", col_slice=col_slice)
+    fields, scalars = (_read_npz if str(path).endswith(".npz")
+                       else _read_h5)(path)
+    if col_slice is not None:
+        start, count = col_slice
+        klon = int(scalars["KLON"])
+        fields = {k: v[..., start:start + count]
+                  if v.shape[-1] == klon and k not in _TABLES else v
+                  for k, v in fields.items()}
+    return fields, scalars
+
+
+def _peek_klon(path) -> int:
+    """The snapshot's column count, read without the fields."""
+    if Path(path).is_dir():
+        return int(SerialboxArchive(path, "input").global_scalars()["KLON"])
+    if str(path).endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            return int(json.loads(str(z[_SCALARS_KEY]))["KLON"])
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return int(f["KLON"][0])
+
+
+def load_input(path, ngptot: int | None = None, ngptotg: int | None = None,
+               rank: int = 0, nranks: int = 1) -> InputData:
+    """The input snapshot at file width, for a run of `ngptot` columns.
+
+    `path` is an .npz archive, an .h5 mirror or the reference's Serialbox
+    directory. In a run over several ranks pass this rank's `rank`, the
+    rank count `nranks` and the global column count `ngptotg`: the fields
+    then hold this rank's slice of the file's columns when the file has at
+    least `ngptotg` of them, and the whole file otherwise
+    (`expand.get_offsets`; the JAX loader's rule). The slice is taken
+    before any expansion; a directory reads only the slice, an .npz or .h5
+    file is loaded whole and then sliced. `klon_file` stays the file's
+    column count. The defaults read the whole file."""
+    klon = _peek_klon(path)
+    ngptot = ngptot or klon
+    start, count = get_offsets(klon, ngptot, ngptotg or ngptot, rank, nranks)
+    raw, scalars = _read(path, None if (start, count) == (0, klon)
+                         else (start, count))
     fields = {name: raw[name] for name in INPUT_FIELDS}
-    # parameter tables stored as fields, not per-column data
-    # (ref: yoecldp.F90:358-366 loads YRECLDP_RBETA(0:100))
-    for name in ("YRECLDP_RBETA", "YRECLDP_RBETAP1"):
-        if name in raw:
-            fields[name] = raw[name]
+    fields.update({name: raw[name] for name in _TABLES if name in raw})
     return InputData(
         fields=fields, scalars=scalars, klon_file=klon,
-        klev=int(scalars["KLEV"]), ngptot=ngptot or klon,
+        klev=int(scalars["KLEV"]), ngptot=ngptot,
         ptsphy=float(scalars["PTSPHY"]),
     )
 
 
-def load_reference(path, ngptot: int | None = None) -> dict:
-    """The golden outputs, expanded cyclically to `ngptot` columns."""
+def load_reference(path, ngptot: int | None = None,
+                   ngptotg: int | None = None, rank: int = 0,
+                   nranks: int = 1) -> dict:
+    """The golden outputs, expanded cyclically to `ngptot` columns (at file
+    width if None). With `ngptotg`, `rank` and `nranks` the file's columns
+    are sliced first by the same rule as `load_input`'s, so each rank holds
+    the golden columns of its own slice."""
     raw, _ = _read(path)
-    return {name: raw[name] if ngptot is None else
-            expand_field(raw[name], ngptot) for name in REFERENCE_FIELDS}
+    out = {}
+    for name in REFERENCE_FIELDS:
+        arr = raw[name]
+        if ngptot is not None:
+            klon = arr.shape[-1]
+            start, count = get_offsets(klon, ngptot, ngptotg or ngptot,
+                                       rank, nranks)
+            if (start, count) != (0, klon):
+                arr = arr[..., start:start + count]
+            arr = expand_field(arr, ngptot)
+        out[name] = arr
+    return out
 
 
 def write_npz(h5_path, npz_path) -> None:

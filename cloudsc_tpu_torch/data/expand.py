@@ -1,4 +1,5 @@
-"""Column expansion, grouped column order and activity sorting.
+"""Per-rank slicing, column expansion, grouped column order and activity
+sorting.
 
 Counterpart of `cloudsc_tpu/data/expand.py` (numpy only). The snapshot
 holds KLON (=100) columns; a run of NGPTOT >> KLON columns tiles them
@@ -12,6 +13,19 @@ permutation is exact.
 from __future__ import annotations
 
 import numpy as np
+
+
+def get_offsets(klon_file: int, ngptot: int, ngptotg: int, rank: int,
+                nranks: int) -> tuple[int, int]:
+    """This rank's (start, count) in the file's columns. The file is cut
+    between ranks only when it holds at least NGPTOTG columns, rank r from
+    r * ceil(ngptotg / nranks); otherwise every rank reads all of it and
+    tiles it, so a run on several ranks computes what one rank does
+    (ref: expand_mod.F90:30-46, dwarf_cloudsc.F90:74-77)."""
+    if klon_file >= ngptotg:
+        share = (ngptotg - 1) // nranks + 1
+        return rank * share, min(klon_file, ngptot)
+    return 0, klon_file
 
 
 def expand_field(field: np.ndarray, ngptot: int,

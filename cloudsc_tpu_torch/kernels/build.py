@@ -10,10 +10,12 @@ Flags: sm_90a, -O3, C++17, -fmad=false (no multiply-add contraction, so the
 kernels agree with their plain versions to a few ulps; the probes write
 their multiply-adds as explicit fmaf) and no fast math, plus K1's ring
 geometry as -D macros (`cuda_cloudsc.RING`, or another geometry for a
-sweep: `bench/ring_sweep.py`) and K1's scheme version as -D macros
-(`cuda_cloudsc.KernelVersion`). The default build holds every source with
-the reference configuration; another scheme version builds K1's source
-alone into its own directory at first use. A failed build raises.
+sweep: `bench/ring_sweep.py`), K1's scheme version as -D macros
+(`cuda_cloudsc.KernelVersion`) and K3's ring geometry as -D macros
+(`cuda_probes.COPY_RING`, read when the flags are made). The default build
+holds every source with the reference configuration; another scheme
+version builds K1's source alone into its own directory at first use. A
+failed build raises.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ ENTRY_POINTS = {
     **{f"cloudsc_fused_occupancy_{t}": [_vp] for t in ("f32", "f64")},
     "overlap_probe": [_vp] * 5 + [_i] * 7 + [_vp],
     "copy_probe": [_vp] * 4 + [_i, _i, _ll, _i, _ll, _ll, _i, _vp],
+    # (int out[9]): K3's geometry and occupancy on the current device
+    "copy_probe_geometry": [_vp],
 }
 
 # loaded libraries by (geometry, sources, scheme version); (None, None,
@@ -67,17 +71,19 @@ def _nvcc() -> str:
 def nvcc_flags(ring=None, version=None) -> tuple:
     """NVCC_FLAGS, K1's ring geometry (a `cuda_cloudsc.RingGeometry`; None
     is `RING`) as the CLOUDSC_RING_<STAGES|BLOCK|MIN_BLOCKS> macros of
-    csrc/cloudsc_fused.cu, and K1's scheme version (a
+    csrc/cloudsc_fused.cu, K1's scheme version (a
     `cuda_cloudsc.KernelVersion`; None is the reference configuration) as
-    the CLOUDSC_<switch> macros of csrc/cloudsc_scheme.cuh."""
-    from . import cuda_cloudsc
+    the CLOUDSC_<switch> macros of csrc/cloudsc_scheme.cuh, and K3's ring
+    (`cuda_probes.COPY_RING`) as the COPY_RING_<STAGES|CHUNK|CTAS> macros
+    of csrc/probes.cu."""
+    from . import cuda_cloudsc, cuda_probes
 
     ring = cuda_cloudsc.RING if ring is None else ring
     version = cuda_cloudsc.DEFAULT_VERSION if version is None else version
     return NVCC_FLAGS + (f"-DCLOUDSC_RING_STAGES={ring.stages}",
                          f"-DCLOUDSC_RING_BLOCK={ring.block}",
                          f"-DCLOUDSC_RING_MIN_BLOCKS={ring.min_blocks}") \
-        + version.macros()
+        + version.macros() + cuda_probes.COPY_RING.macros()
 
 
 def _sources(sources=None) -> list[Path]:

@@ -18,9 +18,14 @@ only output block 0: level 0 and the column output of the first sb*128
 columns are what the two share.
 
 K3, the copy probe (`bench/dma_probe.py::make_copy`): `out = in *
-1.0000001` over arrays whose thread blocks each copy the runs of one TPU
-grid step (`CopyProbe`: contig<N>, strided, tilemajor). `dma_copy`
-launches the kernel, `dma_copy_plain` is its plain version.
+1.0000001` over arrays copied in the access shape of the TPU's grid steps
+(`CopyProbe`: contig<N>, strided, tilemajor). The kernel is a persistent
+grid with a ring of TMA bulk copies a CTA (`COPY_RING`: stages, bytes a
+stage, CTAs an SM); `CopyProbe.stage_copies` is its cut of the runs into
+stages and `CopyProbe.stages` its deal of the stages to the CTAs, both
+replayed on the CPU by the tests. `dma_copy` launches the kernel,
+`dma_copy_plain` is its plain version, `copy_geometry` reads what the
+built kernel runs with on the card.
 
 Every multiply-add of K2 is one rounding, as XLA's contraction of the JAX
 body and the kernel's fmaf compute it; the plain version takes it with
@@ -208,11 +213,41 @@ def overlap_plain(x: torch.Tensor, col: torch.Tensor, variant: str,
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class CopyRing:
+    """K3's ring: `stages` (S) slots of at most `chunk` bytes a CTA in
+    shared memory, and `ctas` CTAs an SM in the persistent grid."""
+
+    stages: int
+    chunk: int
+    ctas: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA."""
+        return self.stages * self.chunk
+
+    def macros(self) -> tuple:
+        """The COPY_RING_* flags of csrc/probes.cu."""
+        return (f"-DCOPY_RING_STAGES={self.stages}",
+                f"-DCOPY_RING_CHUNK={self.chunk}",
+                f"-DCOPY_RING_CTAS={self.ctas}")
+
+
+# the copy ring K3 is built with, the best worst case over the lab's probes
+# (sb 32 and 1) of fifteen rings swept with `bench/dma_probe.py` on an H100
+# (PERF.md); kernels/build.py passes it to csrc/probes.cu as the
+# COPY_RING_* macros when it makes the flags
+COPY_RING = CopyRing(stages=6, chunk=16384, ctas=2)
+# the kernel's threads a CTA (csrc/probes.cu COPY_THREADS)
+COPY_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class CopyProbe:
     """One copy probe: the array `shape`, the TPU's `block` and `grid` (for
-    the record), and what each of the kernel's `ni * nk2` thread blocks
-    copies: block (i, k) = (b % ni, b // ni) copies `nruns` runs of
-    `run_len` floats, run q at `i*base_i + k*base_k + q*run_stride`."""
+    the record), and what each of its `ni * nk2` TPU grid steps copies:
+    step (i, k) = (b % ni, b // ni) copies `nruns` runs of `run_len`
+    floats, run q at `i*base_i + k*base_k + q*run_stride`."""
 
     name: str
     shape: tuple
@@ -227,15 +262,72 @@ class CopyProbe:
     base_k: int
 
     @property
-    def nblocks(self) -> int:
+    def nsteps(self) -> int:
         return self.ni * self.nk2
 
     def offsets(self, i: int, k: int) -> np.ndarray:
-        """The flat offsets thread block (i, k) reads and writes, in the
-        kernel's order."""
+        """The flat offsets TPU grid step (i, k) reads and writes, run by
+        run."""
         base = i * self.base_i + k * self.base_k
         runs = base + self.run_stride * np.arange(self.nruns)
         return (runs[:, None] + np.arange(self.run_len)[None]).reshape(-1)
+
+    def stage_plan(self, chunk: int) -> tuple[int, int]:
+        """(stages a step, pieces a run) for stages of at most `chunk`
+        bytes. A run longer than `chunk` is cut into ceil(run / chunk)
+        pieces of whole 16-byte units, as equal as they come, the longer
+        first; shorter runs are gathered whole (1 piece a run), as many
+        consecutive runs of a step as fit, spread as evenly over the step's
+        stages, the fuller first."""
+        run_bytes = 4 * self.run_len
+        if run_bytes > chunk:
+            ppr = -(-run_bytes // chunk)
+            return self.nruns * ppr, ppr
+        return -(-self.nruns // (chunk // run_bytes)), 1
+
+    def nstages(self, chunk: int) -> int:
+        return self.nsteps * self.stage_plan(chunk)[0]
+
+    def stage_copies(self, chunk: int, t) -> tuple:
+        """The bulk copies of stages `t` (an array of stage numbers), in
+        the kernel's order -> (stage, offset, nbytes) arrays, one entry a
+        copy, offsets and sizes in bytes of the flat array. The kernel's
+        `StageWalk` computes the same integers."""
+        sps, ppr = self.stage_plan(chunk)
+        run_bytes = 4 * self.run_len
+        t = np.asarray(t, dtype=np.int64)
+        b, r = np.divmod(t, sps)
+        base = (b % self.ni) * self.base_i + (b // self.ni) * self.base_k
+        if ppr > 1:
+            q, p = np.divmod(r, ppr)
+            per, rem = divmod(run_bytes // 16, ppr)
+            g = base + q * self.run_stride + 4 * (p * per + np.minimum(p, rem))
+            nq = np.ones_like(t)
+            size = 16 * (per + (p < rem))
+        else:
+            per, rem = divmod(self.nruns, sps)
+            g = base + (r * per + np.minimum(r, rem)) * self.run_stride
+            nq = per + (r < rem)
+            size = np.full_like(t, run_bytes)
+        first = np.repeat(np.cumsum(nq) - nq, nq)
+        m = np.arange(int(nq.sum()), dtype=np.int64) - first
+        return (np.repeat(t, nq),
+                4 * (np.repeat(g, nq) + m * self.run_stride),
+                np.repeat(size, nq))
+
+    def stages(self, nctas: int, chunk: int) -> list:
+        """Each CTA's stages, in its order: CTA c runs stages c, c + nctas,
+        ... ; a stage is its list of (offset, nbytes) bulk copies."""
+        total = self.nstages(chunk)
+        out = []
+        for c in range(nctas):
+            stage, off, size = self.stage_copies(
+                chunk, np.arange(c, total, nctas))
+            mine = {}
+            for t, o, n in zip(stage.tolist(), off.tolist(), size.tolist()):
+                mine.setdefault(t, []).append((o, n))
+            out.append(list(mine.values()))
+        return out
 
 
 def contig_probe(cs: int, nsteps: int) -> CopyProbe:
@@ -269,13 +361,13 @@ def tilemajor_probe(nk2: int, ni: int, lps: int, rows: int,
                      ni, nk2, run, ni * run)
 
 
-def dma_copy(x: torch.Tensor, col: torch.Tensor, probe: CopyProbe):
-    """One pass of the copy probe -> (x * 1.0000001, col * 1.0000001). A
-    CUDA x launches the kernel with the probe's access shape (or raises); a
-    CPU x runs the plain version."""
-    global COPY_LAUNCHES
-    if x.device.type == "cpu":
-        return dma_copy_plain(x, col)
+def check_copy_args(x, col, probe: CopyProbe) -> None:
+    """Raise ValueError for what the kernel does not take: a shape other
+    than the probe's, a type other than fp32, tensors that are not
+    contiguous, not on one CUDA device or not 16-byte aligned (bulk copies
+    move whole 16-byte units between aligned addresses; a view with a
+    storage offset may not be), or runs and offsets that are not whole
+    16-byte units."""
     if tuple(x.shape) != probe.shape or tuple(col.shape) != COL_SHAPE:
         raise ValueError(f"x {tuple(x.shape)} / col {tuple(col.shape)}: the "
                          f"probe takes {probe.shape} / {COL_SHAPE}")
@@ -285,21 +377,58 @@ def dma_copy(x: torch.Tensor, col: torch.Tensor, probe: CopyProbe):
         raise ValueError("x and col must be contiguous")
     if x.device.type != "cuda" or col.device != x.device:
         raise ValueError("the kernel needs x and col on one CUDA device")
+    if x.data_ptr() % 16 or col.data_ptr() % 16:
+        raise ValueError("x and col must be 16-byte aligned (bulk copies)")
+    if any(v % 4 for v in (probe.run_len, probe.run_stride, probe.base_i,
+                           probe.base_k)):
+        raise ValueError("the probe's runs and offsets must be whole "
+                         "16-byte units")
+
+
+def dma_copy(x: torch.Tensor, col: torch.Tensor, probe: CopyProbe):
+    """One pass of the copy probe -> (x * 1.0000001, col * 1.0000001). A
+    CUDA x launches the kernel with the probe's access shape (or raises); a
+    CPU x runs the plain version."""
+    global COPY_LAUNCHES
+    if x.device.type == "cpu":
+        return dma_copy_plain(x, col)
+    check_copy_args(x, col, probe)
     from . import build
 
     lib = build.load_library()
-    out = torch.empty_like(x)
+    out = torch.empty_like(x)  # the allocator's blocks are 512-byte aligned
     col_out = torch.empty_like(col)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.copy_probe(
             x.data_ptr(), col.data_ptr(), out.data_ptr(), col_out.data_ptr(),
             probe.run_len, probe.nruns, probe.run_stride, probe.ni,
-            probe.base_i, probe.base_k, probe.nblocks, stream)
+            probe.base_i, probe.base_k, probe.nsteps, stream)
     COPY_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"copy_probe launch failed: CUDA error {rc}")
     return out, col_out
+
+
+COPY_GEOMETRY_KEYS = ("blocks_per_sm", "smem_bytes", "stages", "chunk",
+                      "ctas", "sms", "threads", "registers", "local_bytes")
+
+
+def copy_geometry() -> dict:
+    """What K3 runs with on the current CUDA device, from the built
+    library: the CTAs an SM that fit, the dynamic shared memory a CTA, its
+    ring (S, bytes a stage, CTAs an SM), the SMs, the threads a CTA, and
+    the registers and local-memory bytes a thread. Needs a card."""
+    import ctypes
+
+    from . import build
+
+    lib = build.load_library()
+    out = (ctypes.c_int * len(COPY_GEOMETRY_KEYS))()
+    rc = lib.copy_probe_geometry(ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"copy_probe_geometry failed: CUDA error {rc}")
+    return dict(zip(COPY_GEOMETRY_KEYS, out))
 
 
 def dma_copy_plain(x: torch.Tensor, col: torch.Tensor):

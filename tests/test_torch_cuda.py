@@ -18,6 +18,8 @@ fmaf and the plain version's `fma32` round once, the copy is one fp32
 multiply.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -296,20 +298,83 @@ def test_overlap_kernel_matches_plain(cuda, variant, mode, w, sb):
             assert torch.equal(a, b)
 
 
-def test_copy_kernel_matches_plain(cuda):
-    probes = [cp.contig_probe(32, 7), cp.contig_probe(3, 5),
-              cp.strided_probe(4, 3, 5, 8, 2), cp.strided_probe(2, 2, 3, 4, 1),
-              cp.tilemajor_probe(3, 4, 3, 5, 2)]
+def _sync_within(seconds: float = 120.0) -> None:
+    """Waits for the stream by polling an event, so that a kernel hung on a
+    barrier fails the test instead of stopping the run."""
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while not done.query():
+        if time.monotonic() - t0 > seconds:
+            pytest.fail(f"the kernel did not finish within {seconds} s")
+        time.sleep(1e-3)
+
+
+def _copy_probes():
+    """The card tests' copy probes: contig, strided and tilemajor at small
+    shapes (contig3: 5 stages, fewer than the grid's CTAs); strided at
+    sb 1 (K1's 512-byte runs, gathered several a stage); runs of three
+    stages and one 512-byte row (cut into four equal pieces); the lab's
+    default strided probe (1.63 GB)."""
+    chunk = cp.COPY_RING.chunk
+    long_run = cp.contig_probe(chunk // 512 * 3 + 1, 4)
+    assert 4 * long_run.run_len > chunk
+    return [cp.contig_probe(32, 7), cp.contig_probe(3, 5),
+            cp.strided_probe(4, 3, 5, 8, 2), cp.strided_probe(2, 2, 3, 4, 1),
+            cp.tilemajor_probe(3, 4, 3, 5, 2),
+            cp.strided_probe(4, 3, 6, 16, 1), long_run,
+            cp.strided_probe(46, 3, 18, 1280, 32)]
+
+
+@pytest.mark.parametrize("k", range(8))
+def test_copy_kernel_matches_plain(cuda, k):
+    """Bit for bit with x * 1.0000001, five times over (a missing proxy
+    fence shows as an occasional stale slot), one launch counted a call."""
+    probe = _copy_probes()[k]
     col = torch.rand(cp.COL_SHAPE).to(cuda)
-    for probe in probes:
-        x = torch.rand(probe.shape).to(cuda)
+    x = torch.rand(probe.shape, device=cuda)
+    want = cp.dma_copy_plain(x, col)
+    for _ in range(5):
         before = cp.COPY_LAUNCHES
         got = cp.dma_copy(x, col, probe)
-        want = cp.dma_copy_plain(x, col)
-        torch.cuda.synchronize()
+        _sync_within()
         assert cp.COPY_LAUNCHES == before + 1
         assert torch.equal(got[0], want[0]), probe.name
         assert torch.equal(got[1], want[1]), probe.name
+
+
+def test_copy_kernel_refuses_a_misaligned_view(cuda):
+    """A view 4 bytes into its storage is not 16-byte aligned: bulk copies
+    cannot take it, and the wrapper raises before any launch."""
+    probe = cp.contig_probe(32, 7)
+    n = int(np.prod(probe.shape))
+    base = torch.rand(n + 4, device=cuda)
+    col = torch.rand(cp.COL_SHAPE, device=cuda)
+    x = base[1:n + 1].reshape(probe.shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = cp.COPY_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cp.dma_copy(x, col, probe)
+    assert cp.COPY_LAUNCHES == before
+    aligned = base[4:n + 4].reshape(probe.shape)
+    got, _ = cp.dma_copy(aligned, col, probe)
+    _sync_within()
+    assert cp.COPY_LAUNCHES == before + 1
+    assert torch.equal(got, aligned * 1.0000001)
+
+
+def test_copy_geometry(cuda):
+    """The built kernel runs `COPY_RING` on every SM of the card: its CTAs
+    an SM fit, and its dynamic shared memory is S stages of CHUNK bytes."""
+    g = cp.copy_geometry()
+    r = cp.COPY_RING
+    assert (g["stages"], g["chunk"], g["ctas"]) == (r.stages, r.chunk,
+                                                    r.ctas)
+    assert g["smem_bytes"] == r.smem_bytes
+    assert g["blocks_per_sm"] >= r.ctas
+    assert g["threads"] == cp.COPY_THREADS
+    assert g["sms"] == torch.cuda.get_device_properties(0).multi_processor_count
+    assert g["local_bytes"] == 0
 
 
 def test_probe_kernels_refuse_bad_arguments(cuda):
