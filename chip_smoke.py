@@ -85,7 +85,31 @@ failed check (the script then exits non-zero and prints no result):
   5. the measurement lab's path, through its entry points
      (`cloudsc_tpu_torch.bench.kernel_lab --modes full init floor`,
      `.overlap_probe` with all five variants, `.dma_probe`): the launch
-     counts reset just before, read just after, every lab kernel launched.
+     counts reset just before, read just after, every lab kernel launched;
+  6. ranks: `torchrun --standalone --nproc-per-node 2 chip_smoke.py
+     --cli-rank 1 163840 128 --precision fp64 --kernel cuda`, two ranks of
+     `cloudsc_tpu_torch.cli.main` (what `python -m cloudsc_tpu_torch` runs)
+     over gloo, each on card LOCAL_RANK % device_count() (one card: both
+     share it), each reporting its own K1 launch count (2: the warm-up and
+     the step): exit 0, one NUMPROC=2 line and the `@ rank#1` row from rank
+     0 alone, every field within FP64_TOL and the fp64 bar, and the
+     printed table equal, digit for digit, to the one from an in-process
+     one-rank 81,920-column run's card norms with errsum and refsum
+     doubled (each rank tiles the whole 100-column snapshot); then at 100
+     columns (true slicing) with `--write-reference`, each rank's file
+     equal to its slice of a one-rank 100-column run, bit for bit;
+  7. mesh: `CloudscDriver(devices=[cuda:0, cuda:0])` (the first two cards
+     where there are two) at 163,840 columns, fp32 and fp64: bit for bit
+     with the one-device main path, two timer rows, K1 launched twice a
+     step (counts reset just before, read just after);
+  8. levels: K1 against its plain version at 61, 68 and 91 levels and
+     RAGGED_NCOL columns, fp32 and fp64, bit for bit;
+  9. flags, fp32 at 163,840 columns through `cli.main`: `--debug-nans`
+     passes, then raises on an input poisoned with one NaN, and
+     `driver.check_finite` on outputs poisoned with one; `--profile`
+     writes a non-empty Chrome trace; `--sweep-nproma 64,128` prints two
+     config lines and perf tables and one validation table.
+     Each of phases 6-9 prints its seconds.
 
 The line before the last is the kernel table as JSON, with each kernel's
 bound (`bound_ms`: the larger of its modeled bytes over PEAK_GBS and its
@@ -97,6 +121,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1071,6 +1096,312 @@ def phase_pmon(inp, params):
     return results
 
 
+# ---- ranks, meshes, level counts and the CLI's flags -----------------------
+
+RANK_TIMEOUT = 300  # seconds a two-rank launch may take
+RANK_LINE = "chip_smoke rank "
+
+
+def cli_rank(argv) -> int:
+    """One rank of a `torchrun` launch: `cloudsc_tpu_torch.cli.main(argv)`,
+    as `python -m cloudsc_tpu_torch` runs it, then this rank's K1 launch
+    count on stderr (`RANK_LINE` + JSON)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cloudsc_tpu_torch import cli
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+
+    cc.LAUNCHES = 0
+    rc = cli.main(argv)
+    # one write, so the ranks' lines on the shared stderr do not interleave
+    line = RANK_LINE + json.dumps({"rank": int(os.environ.get("RANK", "0")),
+                                   "launches": cc.LAUNCHES})
+    os.write(sys.stderr.fileno(), f"\n{line}\n".encode())
+    return rc
+
+
+def _launch_ranks(args):
+    """`torchrun --standalone --nproc-per-node 2 chip_smoke.py --cli-rank
+    ARGS` on this host's cards; returns (stdout, {rank: K1 launches})."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", os.path.abspath(__file__), "--cli-rank",
+           *args]
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       timeout=RANK_TIMEOUT,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0:
+        raise RuntimeError(f"two ranks of {args}: rc {r.returncode}\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    launches = {}
+    for rec in re.findall(re.escape(RANK_LINE) + r"(\{[^}]*\})", r.stderr):
+        rec = json.loads(rec)
+        launches[rec["rank"]] = rec["launches"]
+    return r.stdout, launches
+
+
+def _table_lines(text) -> dict:
+    """{field: printed validation row} of a CLI's stdout."""
+    return {m.group(1): line for line in text.splitlines()
+            if (m := re.match(r" (\S+)\s+[123]D[123] ", line))}
+
+
+def phase_ranks(params):
+    """Two ranks of the CLI sharing the card (gloo; each rank takes
+    LOCAL_RANK % device_count()): at NGPTOT columns in fp64, each rank's 81,920
+    columns tile the whole snapshot, so the printed table must equal, digit
+    for digit, the table of an in-process one-rank 81,920-column run's
+    card norms with errsum and refsum doubled (a sum of two equal fp64
+    numbers is exact); every field within FP64_TOL and the fp64 bar. At
+    100 columns (true slicing) each rank's written outputs equal the
+    matching slice of a one-rank 100-column run bit for bit. Returns
+    {case: (seconds, {rank: K1 launches})}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cloudsc_tpu_torch import data
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+    from cloudsc_tpu_torch.validate import REF_DATASET, FIELD_ATTR, \
+        device_field_norms, error_line, reference_on_device, \
+        validate_from_norms
+
+    results = {}
+    half = NGPTOT // 2
+    t0 = time.perf_counter()
+    out, launches = _launch_ranks([
+        "1", str(NGPTOT), str(NPROMA), "--precision", "fp64", "--kernel",
+        "cuda"])
+    seconds = time.perf_counter() - t0
+    if out.count("NUMPROC=2,") != 1 or "@ rank#1" not in out:
+        raise RuntimeError(f"ranks: config line or rank#1 row missing:\n"
+                           f"{out[-3000:]}")
+    if out.count(" Variable ") != 1:
+        raise RuntimeError("ranks: not exactly one validation table")
+    if launches != {0: 2, 1: 2}:
+        raise RuntimeError(f"ranks: K1 launches {launches}, expected 2 a "
+                           f"rank (warm-up and one step)")
+    printed = _table_lines(out)
+    inp = data.load_input(data.default_input_path(), half)
+    driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                           device="cuda", backend="cuda")
+    one, _, _ = driver.run(inp, fetch_outputs=False)
+    norms = device_field_norms(one, reference_on_device(
+        data.default_reference_path(), half, "cuda")).cpu().numpy()
+    del one
+    norms[:, 3:] *= 2.0
+    errs = validate_from_norms(norms, NGPTOT, print_table=False)
+    for e in errs:
+        if printed.get(e.name) != error_line(e):
+            raise RuntimeError(f"ranks {e.name}: printed\n"
+                               f"{printed.get(e.name)!r}, the doubled "
+                               f"one-rank norms give\n{error_line(e)!r}")
+    flagged = _check_bars("phase ranks fp64", errs)
+    print(f"phase ranks fp64: 2 ranks on {torch.cuda.device_count()} "
+          f"card(s) at {NGPTOT} columns in {seconds:.1f} s, K1 launches "
+          f"{launches}; the table equals the doubled one-rank {half}-column "
+          f"norms on all 21 rows, flagged {sorted(flagged)}")
+    print("\n".join(line for line in out.splitlines()
+                    if "@ rank#" in line or "TOTAL" in line))
+    results["fp64"] = (seconds, launches)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, launches = _launch_ranks([
+            "1", "100", "16", "--precision", "fp64", "--kernel", "cuda",
+            "--write-reference", os.path.join(tmp, "ref.npz")])
+        seconds = time.perf_counter() - t0
+        inp = data.load_input(data.default_input_path(), 100)
+        single, _, _ = CloudscDriver(params, inp.ptsphy, torch.float64,
+                                     "cuda", backend="cuda").run(inp)
+        for r in range(2):
+            fields, _ = data._read(os.path.join(tmp, f"ref.rank{r}.npz"))
+            for name, attr in FIELD_ATTR.items():
+                got = fields[REF_DATASET[name]]
+                want = getattr(single, attr)[..., 50 * r:50 * (r + 1)]
+                if not np.array_equal(got, want):
+                    raise RuntimeError(f"ranks at 100 columns: rank {r} "
+                                       f"{name} differs from the one-rank "
+                                       f"slice")
+    print(f"phase ranks 100 columns: each rank's written outputs equal the "
+          f"one-rank run's slice bit for bit (true slicing), {seconds:.1f} s, "
+          f"K1 launches {launches}")
+    results["100"] = (seconds, launches)
+    return results
+
+
+def phase_mesh(inp, params):
+    """The driver's mesh of two shares at NGPTOT columns (the first two
+    cards where there are two, else one card twice), fp32 and fp64: its
+    outputs equal the one-device main path's bit for bit, two timer rows,
+    K1 launched twice a step. Returns {tag: (launches, seconds, the
+    timer's per-device ms a step)}."""
+    import torch
+
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    ndev = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if ndev > 1 else ["cuda:0", "cuda:0"]
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        t0 = time.perf_counter()
+        one, _, _ = CloudscDriver(params, inp.ptsphy, dtype=dtype,
+                                  device="cuda").run(inp, fetch_outputs=False)
+        mesh = CloudscDriver(params, inp.ptsphy, dtype=dtype,
+                             devices=devices)
+        cc.LAUNCHES = 0
+        shards, timings, timer = mesh.run(inp, iterations=ITERATIONS,
+                                          fetch_outputs=False)
+        torch.cuda.synchronize()
+        launches = cc.LAUNCHES
+        if launches != 2 * (1 + ITERATIONS):
+            raise RuntimeError(f"mesh {tag}: {launches} K1 launches, "
+                               f"expected {2 * (1 + ITERATIONS)}")
+        if len(timer.device_cols) != 2 or \
+                sum(timer.device_cols) != NGPTOT * ITERATIONS:
+            raise RuntimeError(f"mesh {tag}: timer rows {timer.device_cols}")
+        for name in one._fields:
+            got = torch.cat([getattr(s, name).to("cuda:0") for s in shards],
+                            -1)
+            if not torch.equal(got, getattr(one, name)):
+                raise RuntimeError(f"mesh {tag} {name}: not bit for bit "
+                                   f"with the one-device main path")
+        seconds = time.perf_counter() - t0
+        ms = [t / ITERATIONS * 1e3 for t in timer.device_time]
+        print(f"phase mesh {tag}: 2 shares on {devices} at {NGPTOT} columns "
+              f"bit for bit with the one-device main path on all 21 fields, "
+              f"K1 launches {launches}, timer rows {timer.device_cols}, "
+              f"{seconds:.1f} s")
+        timer.print_performance(NPROMA, -(-NGPTOT // NPROMA), NGPTOT,
+                                numomp=1, iterations=ITERATIONS)
+        results[tag] = (launches, seconds, ms)
+        del one, shards
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_levels(params):
+    """K1 against its plain version at 61, 68 and 91 levels (the top of
+    the atmosphere kept, tests/test_level_generality.py's truncation) at
+    RAGGED_NCOL columns, fp32 and fp64: every output buffer bit for bit.
+    Returns the seconds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cloudsc_tpu_torch import data
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.physics import scheme
+
+    t0 = time.perf_counter()
+    base = data.load_input(data.default_input_path(), RAGGED_NCOL)
+    for nlev in (61, 68, 91):
+        fields = {}
+        for name, a in base.fields.items():
+            if a.ndim >= 2 and a.shape[-2] in (base.klev, base.klev + 1):
+                cut = nlev + a.shape[-2] - base.klev
+                fields[name] = np.ascontiguousarray(a[..., :cut, :])
+            else:
+                fields[name] = a
+        inp = dataclasses.replace(base, fields=fields, klev=nlev)
+        for dtype in (torch.float32, torch.float64):
+            c = scheme.derived_consts(params, inp.ptsphy, dtype)
+            p = cc.pack_inputs_folded(inp, params, dtype=dtype).to("cuda")
+            got = cc.cloudsc_fused(p, c)
+            want = cc.cloudsc_fused_plain(p, c)
+            for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got,
+                                  want):
+                if a.shape != b.shape or not bool(torch.isfinite(a).all()) \
+                        or not torch.equal(a, b):
+                    raise RuntimeError(f"levels {nlev} {dtype} {name}: "
+                                       f"kernel != plain version")
+    seconds = time.perf_counter() - t0
+    print(f"phase levels: K1 == plain version bit for bit at 61, 68 and 91 "
+          f"levels, {RAGGED_NCOL} columns, fp32 and fp64, {seconds:.1f} s")
+    return seconds
+
+
+def _cli(argv):
+    """`cloudsc_tpu_torch.cli.main(argv)` in this process; its stdout."""
+    import contextlib
+    import io
+
+    from cloudsc_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"cli {argv}: rc {rc}")
+    return buf.getvalue()
+
+
+def phase_flags(inp, params):
+    """The CLI's flags at NGPTOT columns in fp32, in this process:
+    `--debug-nans` passes, then raises on an input poisoned with one NaN
+    and on the main path's outputs poisoned with one NaN (naming the
+    field); `--profile` writes a non-empty Chrome trace; `--sweep-nproma
+    64,128` prints two config lines and two perf tables and one
+    validation table. Returns the seconds."""
+    import tempfile
+
+    import torch
+
+    from cloudsc_tpu_torch import data
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver, check_finite
+
+    t0 = time.perf_counter()
+    base = ["1", str(NGPTOT), str(NPROMA)]
+    out = _cli([*base, "--debug-nans", "--iterations", "2"])
+    if len(_table_lines(out)) != 21:
+        raise RuntimeError("--debug-nans: no validation table")
+    driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float32,
+                           device="cuda")
+    res, _, _ = driver.run(inp, fetch_outputs=False, debug_nans=True)
+    res.pfplsl[100, NGPTOT // 3] = float("nan")
+    try:
+        check_finite(res, 1)
+    except FloatingPointError as e:
+        if "pfplsl" not in str(e):
+            raise
+    else:
+        raise RuntimeError("check_finite missed a NaN in pfplsl")
+    del res
+    with tempfile.TemporaryDirectory() as tmp:
+        fields, scalars = data._read(data.default_input_path())
+        fields["PT"] = fields["PT"].copy()
+        fields["PT"][100, 7] = float("nan")
+        poisoned = os.path.join(tmp, "poisoned.npz")
+        data.write_snapshot(poisoned, fields, scalars)
+        try:
+            _cli([*base, "--debug-nans", "--input", poisoned])
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            raise RuntimeError("--debug-nans passed a poisoned input")
+        _cli([*base, "--no-validate", "--profile", tmp])
+        trace = os.path.join(tmp, f"trace_rank0_nproma{NPROMA}.json")
+        text = open(trace).read()
+        if not json.loads(text)["traceEvents"]:
+            raise RuntimeError("--profile wrote an empty trace")
+        kernel_events = text.count("fused_kernel")
+    out = _cli([*base, "--sweep-nproma", "64,128"])
+    lines = out.splitlines()
+    if sum("NUMPROC=1" in x for x in lines) != 2 \
+            or sum(x.rstrip().endswith(": TOTAL") for x in lines) != 2 \
+            or out.count(" Variable ") != 1:
+        raise RuntimeError(f"--sweep-nproma 64,128:\n{out[-3000:]}")
+    seconds = time.perf_counter() - t0
+    print(f"phase flags fp32 at {NGPTOT} columns: --debug-nans passed, then "
+          f"raised on a poisoned input ({raised}) and on poisoned outputs; "
+          f"--profile wrote {len(text)} B with {kernel_events} events named "
+          f"fused_kernel; --sweep-nproma 64,128 printed two tables; "
+          f"{seconds:.1f} s")
+    return seconds
+
+
 def over_jax_reading(errs) -> dict:
     """fp64 fields (validate.FieldErrors) whose MaxRelErr is above both the
     10*eps flag bar and the JAX engine's own reading at 163,840 columns."""
@@ -1081,6 +1412,8 @@ def over_jax_reading(errs) -> dict:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--cli-rank"]:
+        return cli_rank(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
@@ -1132,6 +1465,12 @@ def main() -> int:
     phase_refusal(params)
     pmon = phase_pmon(inp, params)
     lab_counts = phase5_lab_path()
+    torch.cuda.empty_cache()
+    print(f"torch.cuda.device_count() = {torch.cuda.device_count()}")
+    ranks = phase_ranks(params)
+    mesh = phase_mesh(inp, params)
+    levels_s = phase_levels(params)
+    flags_s = phase_flags(inp, params)
 
     nlev = inp.klev
     k1_bound = {tag: bound(k[tag][3], K1_FLOP_PER_COLUMN * NGPTOT, tag)
@@ -1213,6 +1552,21 @@ def main() -> int:
               f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s; plain x * 1.0000001 "
               f"{plain_ms:.4f} ms, {nbytes / (plain_ms * 1e-3) / 1e9:.0f} GB/s "
               f"(CUDA events over {ITERATIONS} launches)")
+    for tag, (launches_m, seconds, ms) in mesh.items():
+        print(f"timing mesh {tag} [{card}]: per-device rows "
+              + ", ".join(f"{t:.4f}" for t in ms)
+              + f" ms a step over {ITERATIONS} steps ({launches_m} K1 "
+              f"launches; two shares on "
+              + ("two cards" if torch.cuda.device_count() > 1
+                 else "one card: a correctness run, not a speed figure")
+              + f"); phase {seconds:.1f} s")
+    for case, (seconds, launches_r) in ranks.items():
+        print(f"timing ranks {case} [{card}]: two ranks sharing "
+              f"{'the card' if torch.cuda.device_count() == 1 else 'cards'} "
+              f"{seconds:.1f} s from launch to exit, K1 launches "
+              f"{launches_r} (their rows above are a correctness run, not a "
+              f"speed figure)")
+    print(f"timing levels [{card}]: {levels_s:.1f} s; flags {flags_s:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # the table's times are fp32 (K1's three bodies, the probes)
     max_abs, ms, plain_ms, _ = k["fp32"]

@@ -8,7 +8,8 @@ snapshot and the golden outputs from numpy archives (`data/input.npz`,
 the reference's raw Serialbox archive (`serialbox.py`, numpy only). Arrays
 keep the mirror's layout: (lev, col), (nclv, lev, col), (lev+1, col),
 columns last. Both loaders take the JAX loaders' per-rank arguments
-(`ngptotg`, `rank`, `nranks`; `expand.get_offsets`).
+(`ngptotg`, `rank`, `nranks`; `expand.get_offsets`). `write_snapshot`
+writes an input or a reference back, as `.npz` or `.h5`.
 
 tests/test_torch_driver.py and tests/test_torch_data.py hold the loaders
 equal to the JAX package's.
@@ -185,12 +186,36 @@ def load_reference(path, ngptot: int | None = None,
     return out
 
 
+def write_snapshot(path, fields: dict, scalars: dict) -> None:
+    """Write fields and scalars as an archive both loaders read back:
+    `.npz` in the port's format (every field an array, the scalars as
+    JSON), `.h5` as the mirrors hold them (a dataset a field, a shape-(1,)
+    dataset a scalar; needs h5py, and raises without it rather than write
+    another format). Any other suffix raises."""
+    path = str(path)
+    if path.endswith(".npz"):
+        np.savez_compressed(path, **{k: np.asarray(v)
+                                     for k, v in fields.items()},
+                            **{_SCALARS_KEY: np.array(json.dumps(scalars))})
+        return
+    if not path.endswith(".h5"):
+        raise ValueError(f"{path}: a snapshot is written as .npz or .h5")
+    try:
+        import h5py
+    except ImportError as e:
+        raise RuntimeError(f"{path}: writing .h5 needs h5py, which is not "
+                           f"installed; write .npz instead") from e
+    with h5py.File(path, "w") as f:
+        for k, v in fields.items():
+            f.create_dataset(k, data=np.asarray(v))
+        for k, v in scalars.items():
+            f.create_dataset(k, data=np.asarray([v]))
+
+
 def write_npz(h5_path, npz_path) -> None:
     """Convert an .h5 mirror (input or reference) to the port's archive:
     every non-scalar dataset as an array, the shape-(1,) scalars as JSON."""
-    fields, scalars = _read_h5(h5_path)
-    np.savez_compressed(npz_path, **fields,
-                        **{_SCALARS_KEY: np.array(json.dumps(scalars))})
+    write_snapshot(npz_path, *_read_h5(h5_path))
 
 
 def main(argv=None) -> int:

@@ -73,7 +73,7 @@ def group_inverse(klon: int, ncol: int,
 
 
 def activity_perm(pclv: np.ndarray, tcld: np.ndarray, ptsphy: float,
-                  rlmin: float) -> np.ndarray:
+                  rlmin: float, nshards: int = 1) -> np.ndarray:
     """Most-active-first ordering of the source columns (an argsort, so a
     pure permutation and bitwise neutral through the scheme).
 
@@ -82,7 +82,12 @@ def activity_perm(pclv: np.ndarray, tcld: np.ndarray, ptsphy: float,
     condensate exceeds RLMIN; columns order by (levels from the topmost
     active level to the bottom, number of active levels), descending. On
     the card this puts columns with similar work side by side in a warp,
-    so the per-thread skips diverge less."""
+    so the per-thread skips diverge less.
+
+    `nshards` > 1 (a column mesh: the driver cuts the layout into
+    contiguous shares, one a device) deals the sorted sources round-robin
+    over the shards, so every device gets a similar mix of activity and
+    none is the straggler that holds all the busy columns."""
     q = np.asarray(pclv, np.float64)[:4] + float(ptsphy) * np.asarray(
         tcld, np.float64
     )[:4]
@@ -90,4 +95,7 @@ def activity_perm(pclv: np.ndarray, tcld: np.ndarray, ptsphy: float,
     nlev = act.shape[0]
     first = np.where(act.any(axis=0), act.argmax(axis=0), nlev)
     span = nlev - first
-    return np.lexsort((act.sum(axis=0), span))[::-1].astype(np.int64)
+    order = np.lexsort((act.sum(axis=0), span))[::-1].astype(np.int64)
+    if nshards > 1:
+        order = np.concatenate([order[s::nshards] for s in range(nshards)])
+    return order

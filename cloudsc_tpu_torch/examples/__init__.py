@@ -4,10 +4,12 @@ counterparts of the JAX package's `examples/`:
     python -m cloudsc_tpu_torch.examples.adjoint_sensitivity
     python -m cloudsc_tpu_torch.examples.param_calibration
     python -m cloudsc_tpu_torch.examples.timestep_loop
+    python -m cloudsc_tpu_torch.examples.pod_sharding
 
-Each takes `--device cuda|cpu` (the card unless asked otherwise; it raises
-without one) and `--ngptot N` (100 columns, the snapshot's, by default), and
-runs the eager engine in fp64.
+The first three take `--device cuda|cpu` (the card unless asked otherwise;
+it raises without one) and `--ngptot N` (100 columns, the snapshot's, by
+default), and run the eager engine in fp64. `pod_sharding` runs the fused
+step over a mesh of devices (`--devices`, every visible card by default).
 """
 
 from __future__ import annotations

@@ -442,3 +442,121 @@ def test_energy_sampler_reads_nvml(cuda, monkeypatch):
     assert e1 >= e0 > 0.0 and p0 > 0.0
     sampler.start()
     assert sampler.stop_and_report().startswith(" EC_PMON: energy delta ")
+
+
+# ---- generality, meshes and ranks on the card ---------------------------------
+
+def _truncated(inp, nlev):
+    """The atmosphere cut at `nlev` full levels, the top kept
+    (tests/test_level_generality.py's `_truncated`; that module imports
+    JAX)."""
+    import dataclasses
+
+    fields = {}
+    for name, a in inp.fields.items():
+        if a.ndim >= 2 and a.shape[-2] == inp.klev:
+            fields[name] = np.ascontiguousarray(a[..., :nlev, :])
+        elif a.ndim >= 2 and a.shape[-2] == inp.klev + 1:
+            fields[name] = np.ascontiguousarray(a[..., :nlev + 1, :])
+        else:
+            fields[name] = a
+    return dataclasses.replace(inp, fields=fields, klev=nlev)
+
+
+def _bitwise(p, c):
+    got = cc.cloudsc_fused(p, c)
+    want = cc.cloudsc_fused_plain(p, c)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
+        assert a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), \
+            f"{name}: max abs err {float((a - b).abs().max()):.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nlev", [61, 68, 91])
+def test_kernel_bitwise_at_any_level_count(cuda, nlev, dtype):
+    """K1 takes the level count at run time: at 61, 68 and 91 levels and
+    the ragged 16,387 columns, bit for bit with its plain version."""
+    inp = _truncated(tdata.load_input(tdata.default_input_path(), 16387),
+                     nlev)
+    params = Params.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    p = cc.pack_inputs_folded(inp, params, dtype=dtype).to(cuda)
+    assert p.nlev == nlev
+    _bitwise(p, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_bitwise_on_a_perturbed_state(cuda, dtype):
+    """A seeded shake of the snapshot (tests/test_robustness.py's kind:
+    +-8 K, moisture 0.3-1.7x, condensates 0-5x, cloud fraction 0-2.5x
+    clipped) fires branches the snapshot leaves cold; K1 stays bit for bit
+    with its plain version and finite."""
+    import dataclasses
+
+    inp = tdata.load_input(tdata.default_input_path(), 1000)
+    rng = np.random.default_rng(3)
+    f = dict(inp.fields)
+    f["PT"] = f["PT"] + rng.uniform(-8.0, 8.0, size=(1, 100))
+    f["PQ"] = f["PQ"] * rng.uniform(0.3, 1.7, size=f["PQ"].shape)
+    f["PCLV"] = f["PCLV"] * rng.uniform(0.0, 5.0, size=f["PCLV"].shape)
+    f["PA"] = np.clip(f["PA"] * rng.uniform(0.0, 2.5, size=f["PA"].shape),
+                      0.0, 1.0)
+    inp = dataclasses.replace(inp, fields=f)
+    params = Params.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    _bitwise(cc.pack_inputs_folded(inp, params, dtype=dtype).to(cuda), c)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "scan"])
+def test_mesh_on_one_card_bitwise_equals_one_device(cuda, backend):
+    """Two shares on one card (a device may repeat): equal to the
+    one-device run bit for bit, one timer row and one launch a share."""
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    inp = tdata.load_input(tdata.default_input_path(), 16387)
+    params = Params.from_input(inp)
+    one, _, _ = CloudscDriver(params, inp.ptsphy, torch.float64, "cuda",
+                              backend=backend).run(inp)
+    mesh = CloudscDriver(params, inp.ptsphy, torch.float64, backend=backend,
+                         devices=["cuda", "cuda"])
+    before = cc.LAUNCHES
+    two, _, timer = mesh.run(inp, iterations=2)
+    assert cc.LAUNCHES - before == (6 if backend == "cuda" else 0)
+    assert len(timer.device_cols) == 2 and sum(timer.device_cols) == 2 * 16387
+    for name in one._fields:
+        np.testing.assert_array_equal(getattr(two, name), getattr(one, name),
+                                      err_msg=name)
+
+
+def test_scan_padding_bitwise_on_the_card(cuda):
+    """The scan driver's zero padding (100 columns to 128) leaves every
+    real column as the unpadded engine gives it, bit for bit: the card has
+    no vector tail (tests/test_torch_generality.py states the host's)."""
+    from cloudsc_tpu_torch.physics.cloudsc import cloudsc, fields_on_device
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    inp = tdata.load_input(tdata.default_input_path(), 100)
+    params = Params.from_input(inp)
+    plain = cloudsc(fields_on_device(inp, torch.float64, cuda), params,
+                    inp.ptsphy)
+    padded, _, _ = CloudscDriver(params, inp.ptsphy, torch.float64, "cuda",
+                                 backend="scan", nproma=64).run(inp)
+    for name in plain._fields:
+        np.testing.assert_array_equal(getattr(padded, name),
+                                      getattr(plain, name).cpu().numpy(),
+                                      err_msg=name)
+
+
+def test_rank_reference_on_the_card(cuda):
+    """The reference of rank 1 of 2 put on the card equals
+    `load_reference`'s slice of it."""
+    from cloudsc_tpu_torch.validate import reference_on_device
+
+    path = tdata.default_reference_path()
+    got = reference_on_device(path, 50, cuda, 100, 1, 2)
+    for k, v in tdata.load_reference(path, 50, 100, 1, 2).items():
+        assert got[k].device.type == "cuda"
+        np.testing.assert_array_equal(got[k].cpu().numpy(), v, err_msg=k)

@@ -68,7 +68,9 @@ def test_port_never_imports_jax():
         "cloudsc_tpu_torch.bench.grad_blocks\n"
         "import cloudsc_tpu_torch.examples.adjoint_sensitivity, "
         "cloudsc_tpu_torch.examples.param_calibration, "
-        "cloudsc_tpu_torch.examples.timestep_loop\n"
+        "cloudsc_tpu_torch.examples.timestep_loop, "
+        "cloudsc_tpu_torch.examples.pod_sharding, "
+        "cloudsc_tpu_torch.runtime.dist\n"
         "import chip_smoke\n"
         "from cloudsc_tpu_torch.params import Params\n"
         "from cloudsc_tpu_torch.runtime.driver import CloudscDriver\n"
@@ -273,7 +275,8 @@ def test_port_sources_import_no_jax_package():
                 "bench/grad_blocks.py", "physics/autodiff.py",
                 "runtime/pmon.py", "examples/__init__.py",
                 "examples/adjoint_sensitivity.py",
-                "examples/param_calibration.py", "examples/timestep_loop.py"):
+                "examples/param_calibration.py", "examples/timestep_loop.py",
+                "examples/pod_sharding.py", "runtime/dist.py"):
         assert ROOT / "cloudsc_tpu_torch" / rel in files, rel
     files.append(ROOT / "chip_smoke.py")
     bad = {}
