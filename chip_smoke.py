@@ -9,7 +9,8 @@ failed check (the script then exits non-zero and prints no result):
 
   0. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, the kernel builds, all started together (the default
-     library, and K1 alone for each scheme version of VERSION_CASES; seconds,
+     library, and K1 alone for each scheme version of VERSION_CASES and
+     each form build of `data.synthetic.FORM_CASES`; seconds,
      ptxas registers and spills), K1's ring geometry and occupancy in each
      precision and build (S, BLOCK, MIN_BLOCKS, dynamic shared memory,
      registers, spills, blocks an SM; the library's geometry must be
@@ -43,6 +44,15 @@ failed check (the script then exits non-zero and prints no result):
      bit on all 21 fields, its time and the plain version's, and its
      outputs against the reference configuration's build on the same input,
      which must differ (that build's time there is printed beside);
+  1f. K1's form builds (`data.synthetic.FORM_CASES`: the seven other
+     (fc, fn, fd) packs, fn off being the in-line CUADJTQ; skip sets A and
+     B, B with the per-round 5.2.1 skip; no dynamic skips; between them
+     every macro branch of the scheme header)
+     at RAGGED_NCOL columns, fp64 and fp32: each build's main path under
+     its driver switches with the per-version counts reset and read, then
+     on the driver's pack the build against its plain version, all three
+     buffers bit for bit (NaNs included: skipped sections are wrong physics
+     by construction), its time and the plain version's;
   2. the main path in fp32 (`python -m cloudsc_tpu_torch 1 163840 128`'s
      driver calls, outputs left on the card): launch counts reset just
      before, read just after; the perf table; validation on the card
@@ -59,6 +69,14 @@ failed check (the script then exits non-zero and prints no result):
   3s. the eager scan engine (`CloudscDriver(backend="scan")`) in fp64 at the
      same size, validated on the card under the same bars; it launches no
      kernel (every count unchanged);
+  3m. the main path in fp64 at the same size with CLOUDSC_FOLD_NEWTON=0 and
+     with CLOUDSC_FOLD_CURVES=1 CLOUDSC_FOLD_DEP=1: launches by version,
+     validated on the card under the fp64 bars, K1 timed beside the
+     reference build on the same input (two windows each, alternating, the
+     least of each's);
+  3l. the main path in fp32 in the cyclic (CLOUDSC_GROUP_COLUMNS=0) and the
+     grouped unsorted (CLOUDSC_GROUP_SORT=0) layouts: every field equal to
+     the sorted main path's bit for bit after the ungroup;
   3a. the adjoint, fp64: `physics.autodiff.grad` of the gradient tests'
      scalar head with respect to `pt` at 163,840 columns, in column blocks:
      finite, not identically zero, and every column's gradient equal to its
@@ -84,8 +102,10 @@ failed check (the script then exits non-zero and prints no result):
      after phase 5;
   5. the measurement lab's path, through its entry points
      (`cloudsc_tpu_torch.bench.kernel_lab --modes full init floor`,
-     `.overlap_probe` with all five variants, `.dma_probe`): the launch
-     counts reset just before, read just after, every lab kernel launched;
+     `kernel_lab --skip s45r --foldn 0` and `.activity_probe --device cuda`
+     at RAGGED_NCOL columns, `.overlap_probe` with all five variants,
+     `.dma_probe`): the launch counts reset just before, read just after,
+     every lab kernel launched, the skip-and-form build among them;
   6. ranks: `torchrun --standalone --nproc-per-node 2 chip_smoke.py
      --cli-rank 1 163840 128 --precision fp64 --kernel cuda`, two ranks of
      `cloudsc_tpu_torch.cli.main` (what `python -m cloudsc_tpu_torch` runs)
@@ -112,8 +132,9 @@ failed check (the script then exits non-zero and prints no result):
      Each of phases 6-9 prints its seconds.
 
 The line before the last is the kernel table as JSON, with each kernel's
-bound (`bound_ms`: the larger of its modeled bytes over PEAK_GBS and its
-counted operations over PEAK_FLOPS); the last line is
+bound (`bound_ms`: the larger of its modeled bytes over the card's memory
+rate and its counted operations over its peak rate, `bench.timing.bound`);
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -157,15 +178,11 @@ KERNEL_REPLACES = "cloudsc_tpu/kernels/pallas_cloudsc.py:977"
 PROBES_SOURCE = "cloudsc_tpu_torch/csrc/probes.cu"
 # K2's bar against its plain version, max-abs/max-ref
 OVERLAP_TOL = 1e-6
-# assumed HBM peak of one H100 SXM (NVIDIA data sheet), at 700 W: the share
-# printed is a modeled byte count over this figure, not a measured rate
-PEAK_GBS = 3350.0
-# assumed non-tensor-core peaks of one H100 SXM (NVIDIA data sheet), flop/s
-PEAK_FLOPS = {"fp32": 67e12, "fp64": 34e12}
-# K1's operations: the reference's flop model (timer_mod.F90: 12,482,329 per
-# 100 columns); the init body's, counted from cloudsc_scheme.cuh::level_init
-# (+, -, *, / and exp as one each) plus the body's three adds, a level
-K1_FLOP_PER_COLUMN = 12482329 / 100
+# the bound's model (cloudsc_tpu_torch/bench/timing.py: the H100 SXM's
+# data-sheet peaks at 700 W, K1's operations as the reference's flop model
+# counts them) is read there; the init body's operations, counted from
+# cloudsc_scheme.cuh::level_init (+, -, *, / and exp as one each) plus the
+# body's three adds, a level
 INIT_FLOP_PER_LEVEL = 81
 # a column count that is neither a multiple of K1's block nor of 4
 RAGGED_NCOL = 16387
@@ -184,15 +201,6 @@ LOOP_STEPS = 3
 # steps of the main path under the energy monitor: NVML's energy counter
 # moves in steps of tens of milliseconds, so the window is about a second
 PMON_ITERATIONS = 200
-
-
-def bound(nbytes: float, flops: float, tag: str = "fp32"):
-    """(ms, "bytes" or "operations"): the least time the card could take,
-    the larger of the bytes over PEAK_GBS and the operations over
-    PEAK_FLOPS[tag]."""
-    t_bytes = nbytes / (PEAK_GBS * 1e9) * 1e3
-    t_ops = flops / PEAK_FLOPS[tag] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _relerr(got, want) -> float:
@@ -461,6 +469,7 @@ def phase1b_overlap_probe():
     import torch
 
     from cloudsc_tpu_torch.bench import overlap_probe as ob
+    from cloudsc_tpu_torch.bench import timing
     from cloudsc_tpu_torch.kernels import cuda_probes as cp
 
     a = ob.parse_args([])
@@ -522,7 +531,7 @@ def phase1b_overlap_probe():
     flops = 2 * nk2 * ncol * (rr * 8 + 2 * cp.SCR_ROWS + cp.LOOK_ROWS) \
         + ncol + col.numel()
     return max_abs, times, (times[("prod", "full", 8)], plain_ms,
-                            bound(nbytes, flops))
+                            timing.bound(nbytes, flops, "fp32"))
 
 
 def phase1c_copy_probe():
@@ -558,17 +567,6 @@ def phase1c_copy_probe():
     return results
 
 
-def _k1_bytes(p) -> int:
-    """Modeled bytes K1 must move on pack `p`: the pack (every row of its
-    build) and col in, the three output buffers out, each once."""
-    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
-
-    return (p.pack.numel() + p.col.numel()
-            + p.nlev * len(cc.OLEV_ROWS) * p.ncol
-            + (p.nlev + 1) * len(cc.OHALF_ROWS) * p.ncol
-            + p.ncol) * p.pack.element_size()
-
-
 def phase1d_versions(inp, params, versions):
     """Each scheme version of VERSION_CASES at NGPTOT columns, fp64 and
     fp32: its main path with the per-version counts reset and read, then
@@ -578,6 +576,7 @@ def phase1d_versions(inp, params, versions):
     {name: {tag: record}}."""
     import torch
 
+    from cloudsc_tpu_torch.bench import timing
     from cloudsc_tpu_torch.data import synthetic
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.physics import scheme
@@ -637,12 +636,12 @@ def phase1d_versions(inp, params, versions):
             c0_consts = cc.const_vector(c0, "cuda")
             ref_ms = _event_ms(lambda: cc.cloudsc_fused(p0, c0, c0_consts),
                                ITERATIONS)
-            nbytes = _k1_bytes(p)
             results[name][tag] = dict(
                 launches=launches[v], max_abs=max_abs, ms=ms, ref_ms=ref_ms,
                 plain_ms=plain_ms, driver_ms=timings.compute_s * 1e3,
                 rows=len(p.rows),
-                bound=bound(nbytes, K1_FLOP_PER_COLUMN * NGPTOT, tag))
+                bound=timing.bound(cc.k1_bytes(p),
+                                   timing.K1_FLOP_PER_COLUMN * NGPTOT, tag))
             print(f"phase 1d {name} {tag} ({len(p.rows)} rows): kernel == "
                   f"plain version bit for bit on all 21 fields; main-path "
                   f"launches {launches[v]}; {len(changed)} of 21 fields "
@@ -652,23 +651,263 @@ def phase1d_versions(inp, params, versions):
     return results
 
 
+# the driver's switches, all unset at their defaults
+FORM_ENV = ("CLOUDSC_FOLD_NEWTON", "CLOUDSC_FOLD_CURVES", "CLOUDSC_FOLD_DEP",
+            "CLOUDSC_GROUP_COLUMNS", "CLOUDSC_GROUP_SORT",
+            "CLOUDSC_S521_ROUND_SKIP")
+
+
+def _form_env(form: dict) -> dict:
+    """The driver's switches that select the pack's form `form` ({fc, fn,
+    fd} keywords, each absent at its default)."""
+    env = {}
+    if form.get("fc"):
+        env["CLOUDSC_FOLD_CURVES"] = "1"
+    if form.get("fn") is False:
+        env["CLOUDSC_FOLD_NEWTON"] = "0"
+    if form.get("fd"):
+        env["CLOUDSC_FOLD_DEP"] = "1"
+    return env
+
+
+class _env:
+    """The driver's switches set to `values` (the others unset) inside the
+    block, restored after."""
+
+    def __init__(self, values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.pop(k, None) for k in FORM_ENV}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k in FORM_ENV:
+            os.environ.pop(k, None)
+            if self.saved[k] is not None:
+                os.environ[k] = self.saved[k]
+
+
+def form_versions(params, ptsphy) -> dict:
+    """FORM_CASES name -> the KernelVersion the driver runs under its
+    switches and configuration."""
+    import torch
+
+    from cloudsc_tpu_torch.data import synthetic
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.physics import scheme
+
+    out = {}
+    for name, (form, cfg) in synthetic.FORM_CASES.items():
+        with _env(_form_env(form)):
+            flags = cc.fold_flags()
+            c = scheme.derived_consts(params, ptsphy, torch.float32,
+                                      scheme.SchemeConfig(**cfg))
+        out[name] = cc.kernel_version(c, flags)
+    return out
+
+
+def phase_forms(params, forms):
+    """Each FORM_CASES build at RAGGED_NCOL columns, fp64 and fp32: the
+    driver's main path under its switches (one warm-up and one step), the
+    per-version counts reset just before and read just after; then on the
+    driver's pack the build against its plain version, all three buffers
+    bit for bit, and its time and the plain version's. A build that skips
+    sections computes wrong physics by construction (set B drops the
+    implicit solve, whose unsolved sums overflow fp32): its outputs need
+    not be finite, and are held bit for bit, NaNs included. Returns {name:
+    {tag: record}}."""
+    import torch
+
+    from cloudsc_tpu_torch import data
+    from cloudsc_tpu_torch.bench import timing
+    from cloudsc_tpu_torch.bench.kernel_lab import same_bits
+    from cloudsc_tpu_torch.data import synthetic
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.physics import scheme
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    inp = data.load_input(data.default_input_path(), RAGGED_NCOL)
+    results = {}
+    for name, (form, cfg) in synthetic.FORM_CASES.items():
+        v = forms[name]
+        results[name] = {}
+        for dtype in (torch.float64, torch.float32):
+            tag = "fp64" if dtype == torch.float64 else "fp32"
+            with _env(_form_env(form)):
+                driver = CloudscDriver(params, inp.ptsphy, dtype=dtype,
+                                       device="cuda",
+                                       scheme_config=scheme.SchemeConfig(
+                                           **cfg))
+                cc.VERSION_LAUNCHES.clear()
+                out, _, _ = driver.run(inp, iterations=1, fetch_outputs=False)
+                launches = dict(cc.VERSION_LAUNCHES)
+                p = driver.prepare(inp).to("cuda")
+            if launches != {v: 2}:
+                raise RuntimeError(f"form {name} {tag} main path: launches "
+                                   f"{launches}, expected 2 of {v}")
+            if not cfg.get("skip") and not all(
+                    bool(torch.isfinite(a).all()) for a in out):
+                raise RuntimeError(f"form {name} {tag}: non-finite outputs")
+            del out
+            c, consts = driver.step.c, driver.step.consts
+            if cc.kernel_version(c, p.form) != v or len(p.rows) != len(
+                    cc.pack_rows(v.fc, v.fn, v.fd)):
+                raise RuntimeError(f"form {name}: runs "
+                                   f"{cc.kernel_version(c, p.form)}")
+            got = cc.cloudsc_fused(p, c, consts)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = cc.cloudsc_fused_plain(p, c)
+            stop.record()
+            stop.synchronize()
+            plain_ms = start.elapsed_time(stop)
+            max_abs = 0.0
+            for bname, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got,
+                                   want):
+                if not cfg.get("skip") and not bool(torch.isfinite(a).all()):
+                    raise RuntimeError(f"form {name} {tag} {bname}: "
+                                       f"non-finite")
+                if not same_bits(a, b):
+                    err = (a - b).abs().nan_to_num(float("inf")).max()
+                    raise RuntimeError(f"form {name} {tag} {bname}: kernel "
+                                       f"!= plain version (max abs err "
+                                       f"{float(err):.3e})")
+            del got, want
+            ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
+            results[name][tag] = dict(
+                launches=launches[v], max_abs=max_abs, ms=ms,
+                plain_ms=plain_ms, rows=len(p.rows),
+                bound=timing.bound(cc.k1_bytes(p),
+                                   timing.K1_FLOP_PER_COLUMN * p.ncol, tag))
+            print(f"phase forms {name} {tag} ({len(p.rows)} rows): kernel == "
+                  f"plain version bit for bit on all three buffers at "
+                  f"{RAGGED_NCOL} columns; main-path launches {launches[v]}")
+            del p
+            torch.cuda.empty_cache()
+    return results
+
+
+def phase_form_main_path(inp, params, ref_dev):
+    """The main path at NGPTOT columns in fp64 with CLOUDSC_FOLD_NEWTON=0
+    (the in-line CUADJTQ) and with CLOUDSC_FOLD_CURVES=1 CLOUDSC_FOLD_DEP=1
+    (fc+fn+fd): launches by version, validation on the card under the fp64
+    bars, and K1 timed by CUDA events beside the reference build on the
+    same input (two windows each, alternating, the least of each's).
+    Returns {name: record}."""
+    import torch
+
+    from cloudsc_tpu_torch.bench import timing
+    from cloudsc_tpu_torch.data import synthetic
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    results = {}
+    for name in ("fn_off", "fc_fn_fd"):
+        with _env(_form_env(synthetic.FORM_CASES[name][0])):
+            driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                                   device="cuda")
+            cc.VERSION_LAUNCHES.clear()
+            out, timings, _ = driver.run(inp, iterations=ITERATIONS,
+                                         fetch_outputs=False)
+            launches = dict(cc.VERSION_LAUNCHES)
+            p = driver.prepare(inp).to("cuda")
+        v = cc.kernel_version(driver.step.c, p.form)
+        if launches != {v: 1 + ITERATIONS} or v == cc.DEFAULT_VERSION:
+            raise RuntimeError(f"{name} main path: launches {launches}")
+        errs, _ = _card_validation(f"form {name} fp64", out, ref_dev)
+        del out
+        flagged = _check_bars(f"phase form main path {name} fp64", errs)
+        c, consts = driver.step.c, driver.step.consts
+        p0 = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                           device="cuda").prepare(inp).to("cuda")
+        form_ms, ref_ms = [], []
+        for _ in range(2):
+            form_ms.append(_event_ms(lambda: cc.cloudsc_fused(p, c, consts),
+                                     ITERATIONS))
+            ref_ms.append(_event_ms(lambda: cc.cloudsc_fused(p0, c, consts),
+                                    ITERATIONS))
+        ms, ref_ms = min(form_ms), min(ref_ms)
+        results[name] = dict(launches=launches[v], ms=ms, ref_ms=ref_ms,
+                             rows=len(p.rows),
+                             driver_ms=timings.compute_s * 1e3,
+                             flagged=sorted(flagged),
+                             bound=timing.bound(
+                                 cc.k1_bytes(p),
+                                 timing.K1_FLOP_PER_COLUMN * NGPTOT, "fp64"))
+        print(f"phase form main path {name} fp64 ({len(p.rows)} rows): 21 "
+              f"fields within FP64_TOL and the JAX bar, validated on the "
+              f"card, {launches[v]} launches of {name}'s build; K1 "
+              f"{ms:.4f} ms, the reference build on the same input "
+              f"{ref_ms:.4f} ms (the least of two windows each, "
+              f"alternating)")
+        del p, p0
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_layouts(inp, params):
+    """The main path in fp32 at NGPTOT columns in the cyclic layout
+    (CLOUDSC_GROUP_COLUMNS=0) and the grouped unsorted one
+    (CLOUDSC_GROUP_SORT=0): after the ungroup every field equals the sorted
+    main path's bit for bit (K1 has nothing across columns). Returns
+    {layout: K1 ms a step in the driver loop}."""
+    import torch
+
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    base, t, _ = CloudscDriver(params, inp.ptsphy, dtype=torch.float32,
+                               device="cuda").run(inp, iterations=ITERATIONS,
+                                                  fetch_outputs=False)
+    results = {"sorted": t.compute_s * 1e3}
+    for name, env in (("cyclic", {"CLOUDSC_GROUP_COLUMNS": "0"}),
+                      ("grouped", {"CLOUDSC_GROUP_SORT": "0"})):
+        with _env(env):
+            out, t, _ = CloudscDriver(
+                params, inp.ptsphy, dtype=torch.float32, device="cuda").run(
+                    inp, iterations=ITERATIONS, fetch_outputs=False)
+        for f, a, b in zip(base._fields, out, base):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"layout {name} {f}: differs from the "
+                                   f"sorted main path (max abs err "
+                                   f"{float((a - b).abs().max()):.3e})")
+        results[name] = t.compute_s * 1e3
+        print(f"phase layouts {name} fp32: all 21 fields equal the sorted "
+              f"main path's bit for bit after the ungroup")
+        del out
+    del base
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase5_lab_path():
     """The lab's entry points at their defaults (overlap with all five
     variants); every lab kernel's count reset just before and read just
     after. Returns the counts."""
-    from cloudsc_tpu_torch.bench import dma_probe, kernel_lab, overlap_probe
+    from cloudsc_tpu_torch.bench import activity_probe, dma_probe, \
+        kernel_lab, overlap_probe
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.kernels import cuda_probes as cp
 
     cc.LAUNCHES = cc.FLOOR_LAUNCHES = cc.INIT_LAUNCHES = 0
     cp.OVERLAP_LAUNCHES = cp.COPY_LAUNCHES = 0
+    cc.VERSION_LAUNCHES.clear()
+    small = str(RAGGED_NCOL)
     for mod, argv in (
             (kernel_lab, ["--modes", "full", "init", "floor",
                           "--precision", "fp32", "fp64"]),
+            (kernel_lab, ["--ngptot", small, "--skip", "s45r",
+                          "--foldn", "0", "--precision", "fp32", "fp64"]),
+            (activity_probe, ["--device", "cuda", "--ngptot", small]),
             (overlap_probe, ["--variants", *cp.VARIANTS]),
             (dma_probe, [])):
         if mod.main(argv) != 0:
             raise RuntimeError(f"{mod.__name__} {argv} failed")
+    lab_form = cc.KernelVersion(fn=False, skip=frozenset({"s45r"}))
+    if cc.VERSION_LAUNCHES[lab_form] == 0:
+        raise RuntimeError("lab path: kernel_lab --skip s45r --foldn 0 "
+                           "launched no build of that form")
     counts = {"cloudsc_fused": cc.LAUNCHES, "cloudsc_floor": cc.FLOOR_LAUNCHES,
               "cloudsc_init": cc.INIT_LAUNCHES,
               "overlap_probe": cp.OVERLAP_LAUNCHES,
@@ -1427,12 +1666,14 @@ def main() -> int:
     inp = data.load_input(data.default_input_path(), NGPTOT)
     params = Params.from_input(inp)
     versions = scheme_versions(inp, params)
-    card, resources = phase0_environment(versions)
+    forms = form_versions(params, inp.ptsphy)
+    card, resources = phase0_environment({**versions, **forms})
 
     k = phase1_kernel_vs_plain(inp, params)
     diag, diag_bytes = phase1a_diagnostic_bodies(inp, params)
     phase1_ragged(params)
     vk = phase1d_versions(inp, params, versions)
+    fk = phase_forms(params, forms)
     k2_err, k2_times, (k2_ms, k2_plain_ms, k2_bound) = phase1b_overlap_probe()
     k3 = phase1c_copy_probe()
     ref_dev = reference_on_device(data.default_reference_path(), NGPTOT,
@@ -1443,8 +1684,10 @@ def main() -> int:
                                                        torch.float64, ref_dev)
     torch.cuda.empty_cache()
     t_scan, run_scan = phase_scan(inp, params, ref_dev)
+    fmain = phase_form_main_path(inp, params, ref_dev)
     del ref_dev
     torch.cuda.empty_cache()
+    layouts = phase_layouts(inp, params)
 
     # the differentiable path and the loop: one plain fp64 field dict,
     # expanded on the card, for all four phases; no hand-written kernel
@@ -1473,7 +1716,11 @@ def main() -> int:
     flags_s = phase_flags(inp, params)
 
     nlev = inp.klev
-    k1_bound = {tag: bound(k[tag][3], K1_FLOP_PER_COLUMN * NGPTOT, tag)
+    from cloudsc_tpu_torch.bench import timing
+    from cloudsc_tpu_torch.bench.timing import PEAK_GBS
+
+    k1_bound = {tag: timing.bound(k[tag][3],
+                                  timing.K1_FLOP_PER_COLUMN * NGPTOT, tag)
                 for tag in ("fp32", "fp64")}
     for tag, t, run_s, val_s in (("fp32", t32, run32, val32),
                                  ("fp64", t64, run64, val64)):
@@ -1525,6 +1772,29 @@ def main() -> int:
                   f"rows) = {r['bound'][0] / r['ms']:.3f} of the kernel's "
                   f"time; {regs} registers, {spill} B spill stores, {blocks} "
                   f"blocks an SM")
+    for name, rec in fk.items():
+        for tag in ("fp32", "fp64"):
+            r = rec[tag]
+            regs, spill, blocks = resources[name][tag.replace("fp", "f")]
+            print(f"timing K1 form {name} {tag} [{card}]: {r['ms']:.4f} "
+                  f"ms/step at {RAGGED_NCOL} columns (CUDA events over "
+                  f"{ITERATIONS} launches on the driver's pack), plain "
+                  f"version {r['plain_ms']:.1f} ms (1 call); bound "
+                  f"{r['bound'][0]:.4f} ms (by {r['bound'][1]}, {r['rows']} "
+                  f"rows); {regs} registers, {spill} B spill stores, "
+                  f"{blocks} blocks an SM")
+    for name, r in fmain.items():
+        print(f"timing K1 form {name} fp64 main path [{card}]: "
+              f"{r['ms']:.4f} ms/step at {NGPTOT} columns, the reference "
+              f"build on the same input {r['ref_ms']:.4f} ms "
+              f"({r['ms'] / r['ref_ms'] - 1:+.1%}); driver loop "
+              f"{r['driver_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms (by "
+              f"{r['bound'][1]}, {r['rows']} rows) = "
+              f"{r['bound'][0] / r['ms']:.3f} of the kernel's time; flagged "
+              f"{r['flagged']}")
+    print(f"timing layouts fp32 [{card}]: driver loop "
+          + ", ".join(f"{k} {v:.4f} ms/step" for k, v in layouts.items())
+          + f" at {NGPTOT} columns")
     for tag in ("fp32", "fp64"):
         full, init, floor = (diag[(m, tag)][1] for m in ("full", "init",
                                                          "floor"))
@@ -1581,7 +1851,8 @@ def main() -> int:
                   "init": INIT_FLOP_PER_LEVEL * (nlev + 1) * NGPTOT}
     for mode in ("floor", "init"):
         max_abs, ms, plain_ms = diag[(mode, "fp32")]
-        bound_ms, bound_by = bound(diag_bytes["fp32"], diag_flops[mode])
+        bound_ms, bound_by = timing.bound(diag_bytes["fp32"],
+                                          diag_flops[mode], "fp32")
         entries.append({
             "name": f"cloudsc_{mode}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
@@ -1597,7 +1868,8 @@ def main() -> int:
         "bound_by": k2_bound[1], "library_ms": None})
     ms, plain_ms, nbytes, _ = k3["strided"]
     # x and col read once and written once; one multiply a value
-    bound_ms, bound_by = bound(nbytes + 2 * 4 * 1024, nbytes // 8 + 1024)
+    bound_ms, bound_by = timing.bound(nbytes + 2 * 4 * 1024,
+                                      nbytes // 8 + 1024, "fp32")
     entries.append({
         "name": "dma_copy", "route": "cuda", "source": PROBES_SOURCE,
         "replaces": "bench/dma_probe.py:80",
@@ -1621,6 +1893,28 @@ def main() -> int:
             "fp64": {"launches": r64["launches"], "ms": r64["ms"],
                      "plain_ms": r64["plain_ms"], "bound_ms": r64["bound"][0],
                      "bound_by": r64["bound"][1]}})
+    # K1's form builds, at RAGGED_NCOL: fp32 in the common keys, fp64
+    # beside, and the full-width fp64 main path of the two forms it runs
+    for name, rec in fk.items():
+        r32, r64 = rec["fp32"], rec["fp64"]
+        entry = {
+            "name": f"cloudsc_fused[{name}]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+            "launches": r32["launches"],
+            "max_abs_err": max(r32["max_abs"], r64["max_abs"]),
+            "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+            "bound_ms": r32["bound"][0], "bound_by": r32["bound"][1],
+            "library_ms": None, "ncol": RAGGED_NCOL,
+            "fp64": {"launches": r64["launches"], "ms": r64["ms"],
+                     "plain_ms": r64["plain_ms"], "bound_ms": r64["bound"][0],
+                     "bound_by": r64["bound"][1]}}
+        if name in fmain:
+            r = fmain[name]
+            entry["main_path_fp64"] = {
+                "ncol": NGPTOT, "launches": r["launches"], "ms": r["ms"],
+                "reference_build_ms": r["ref_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1]}
+        entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,17 +8,34 @@ the compute run one after the other; if full ~= max(floor, compute), the
 stream hides under the compute or the other way round; a floor far under
 the bandwidth roof says the stream itself is bound by latency.
 
-Timing: one warm-up launch (which builds the kernels on first use; its wall
-time is `build_s`), then `--iters` back-to-back launches between CUDA
-events. Nothing is subtracted.
+`--skip` (comma-joined `scheme.SKIP_TAGS`, one value a run; '' is the full
+physics) drops sections from K1's build, so the time a section costs is the
+full run's less the run without it. `--foldc`, `--foldn` and `--foldd`
+sweep the pack's form (0/1; -1 is CLOUDSC_FOLD_CURVES / _NEWTON / _DEP,
+defaults 0 / 1 / 0): streamed saturation-curve rows, the streamed ZDQS row
+against the in-line CUADJTQ, streamed deposition rows. Each (form, skip) is
+a build of its own; the lab builds them all at once before timing.
+
+Timing: one warm-up launch (its wall time is `build_s`: the library is
+loaded then), then `--iters` back-to-back launches between CUDA events.
+Nothing is subtracted.
+
+Every record also holds the warm-up launch's outputs against the body's
+plain PyTorch version on the same pack: `bitwise` (bit for bit, NaNs
+included) and `finite` (no NaN or infinity in the kernel's outputs: a skip
+that leaves the implicit solve's sums unsolved can overflow fp32, and a
+time taken on non-finite values may skip work that the full physics runs).
 
     python -m cloudsc_tpu_torch.bench.kernel_lab [--ngptot 163840 ...]
         [--modes full init floor] [--order cyclic grouped sorted]
-        [--precision fp32 fp64] [--iters 10] [--out FILE]
+        [--precision fp32 fp64] [--skip '' s31 s45r,s45s ...]
+        [--foldc 0 1] [--foldn 0 1] [--foldd 0 1] [--iters 10] [--out FILE]
 
-The JAX lab's TPU DMA-shape knobs (--sb, --lps, --fold 0, --tilem,
---foldc, --foldd, --foldo) have no counterpart here; --foldn waits for the
-kernel's in-line CUADJTQ and --skip for the kernel's SchemeConfig.skip.
+The JAX lab's TPU DMA-shape knobs (--sb, --lps, --fold 0, --tilem, --foldo)
+have no counterpart here: they shape the TPU's DMA blocks.
+
+Exits 1 without a card, and 2 if a build's kernel is not bit for bit with
+its plain version.
 """
 
 from __future__ import annotations
@@ -27,6 +44,7 @@ import argparse
 import json
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -51,13 +69,42 @@ def parse_args(argv=None):
                         "order: the driver's layout)")
     p.add_argument("--precision", nargs="+", default=["fp32"],
                    choices=sorted(DTYPES))
+    p.add_argument("--skip", nargs="+", default=[""],
+                   help="comma-joined section tags to skip, one value a run "
+                        "('' = the full physics)")
+    for flag, what in (("--foldc", "saturation-curve rows"),
+                       ("--foldn", "ZDQS row (0: the in-line CUADJTQ)"),
+                       ("--foldd", "deposition rows")):
+        p.add_argument(flag, type=int, nargs="+", default=[-1],
+                       choices=[-1, 0, 1],
+                       help=f"stream the folded {what} (0/1; -1: the "
+                            f"environment's default)")
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--out", default=None, help="write the records as JSON")
     return p.parse_args(argv)
 
 
-def make_pack(inp, params, order: str, dtype):
-    """The folded pack in the requested column order, on the card."""
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaNs and infinities included."""
+    ints = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(ints), b.view(ints))
+
+
+def plain(p, c, mode: str):
+    """The plain PyTorch version of body `mode` on pack `p`."""
+    from ..kernels import cuda_cloudsc as cc
+
+    if mode == "floor":
+        return cc.cloudsc_floor_plain(p)
+    if mode == "init":
+        return cc.cloudsc_init_plain(p, c)
+    return cc.cloudsc_fused_plain(p, c)
+
+
+def make_pack(inp, params, order: str, dtype, form=None):
+    """The folded pack in the requested column order and form ({"fc", "fn",
+    "fd"}; None is the main path's), on the card."""
     from ..data.expand import activity_perm
     from ..kernels.cuda_cloudsc import pack_inputs_folded
 
@@ -67,43 +114,129 @@ def make_pack(inp, params, order: str, dtype):
                              inp.ptsphy, params.ydecldp.rlmin)
     return pack_inputs_folded(
         inp, params, dtype=dtype, perm=perm,
-        column_order="cyclic" if order == "cyclic" else "grouped").to("cuda")
+        column_order="cyclic" if order == "cyclic" else "grouped",
+        **(form or {})).to("cuda")
 
 
-def run(a) -> list[dict]:
+def forms(a) -> list[dict]:
+    """The swept forms: {"fc", "fn", "fd"} -> bool, -1 read from the
+    environment (cuda_cloudsc.fold_flags)."""
+    from ..kernels.cuda_cloudsc import fold_flags
+
+    env = fold_flags()
+    return [{"fc": env["fc"] if fc < 0 else bool(fc),
+             "fn": env["fn"] if fn < 0 else bool(fn),
+             "fd": env["fd"] if fd < 0 else bool(fd)}
+            for fc in a.foldc for fn in a.foldn for fd in a.foldd]
+
+
+def configs(a) -> list:
+    from ..physics import scheme
+
+    return [(skip, scheme.SchemeConfig(
+        skip=tuple(t for t in skip.split(",") if t))) for skip in a.skip]
+
+
+def resources(c, p, mode: str) -> dict:
+    """The full body's build on pack `p`: ptxas' registers and spills,
+    its dynamic shared memory and blocks an SM (cuda_cloudsc.occupancy),
+    and its bound (timing.bound on cuda_cloudsc.k1_bytes); empty for the
+    diagnostic bodies."""
+    from ..kernels import build
+    from ..kernels import cuda_cloudsc as cc
+
+    if mode != "full":
+        return {}
+    v = cc.kernel_version(c, p.form)
+    lib = build.load_library(version=v)
+    t = "f32" if p.pack.dtype == torch.float32 else "f64"
+    path = build.build(False, version=v)
+    r = build.parse_ptxas((path.parent / "ptxas.log").read_text())[
+        f"fused_{t}"]
+    occ = cc.occupancy(p.pack.dtype, lib)
+    nbytes = cc.k1_bytes(p)
+    ms, by = timing.bound(nbytes, timing.K1_FLOP_PER_COLUMN * p.ncol,
+                          "fp32" if t == "f32" else "fp64")
+    return dict(registers=r["registers"], spill_stores=r.get("spill_stores"),
+                smem_bytes=occ["smem_bytes"],
+                blocks_per_sm=occ["blocks_per_sm"], bytes=nbytes,
+                bound_ms=ms, bound_by=by)
+
+
+def prebuild(a, params, ptsphy) -> float:
+    """Build every (form, skip) library of the sweep at once; seconds."""
+    from ..kernels import build
+    from ..kernels import cuda_cloudsc as cc
+    from ..physics import scheme
+
+    versions = set()
+    for form in forms(a):
+        for _, cfg in configs(a):
+            c = scheme.derived_consts(params, ptsphy, DTYPES["fp32"], cfg)
+            cc.check_kernel_config(c)
+            versions.add(cc.kernel_version(c, form))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(versions)) as ex:
+        list(ex.map(lambda v: build.build(False, version=v), versions))
+    return time.perf_counter() - t0
+
+
+def run(a) -> tuple[list[dict], bool]:
     from .. import data
     from ..kernels import cuda_cloudsc as cc
     from ..params import Params
     from ..physics import scheme
 
-    records = []
+    records, all_equal = [], True
+    built = False
     for ngptot in a.ngptot:
         inp = data.load_input(data.default_input_path(), ngptot)
         params = Params.from_input(inp)
+        if not built:
+            print(f"# built the sweep's libraries in "
+                  f"{prebuild(a, params, inp.ptsphy):.1f} s", flush=True)
+            built = True
         for order in a.order:
             for precision in a.precision:
                 dtype = DTYPES[precision]
-                c = scheme.derived_consts(params, inp.ptsphy, dtype)
-                consts = cc.const_vector(c, "cuda")
-                p = make_pack(inp, params, order, dtype)
-                for mode in a.modes:
-                    def step():
-                        return cc.cloudsc_fused(p, c, consts, mode=mode)
+                for form in forms(a):
+                    p = make_pack(inp, params, order, dtype, form)
+                    for mode in a.modes:
+                        for skip, cfg in configs(a):
+                            c = scheme.derived_consts(params, inp.ptsphy,
+                                                      dtype, cfg)
+                            consts = cc.const_vector(c, "cuda")
 
-                    t0 = time.perf_counter()
-                    step()
-                    torch.cuda.synchronize()
-                    build_s = time.perf_counter() - t0
-                    ms = timing.event_ms(step, a.iters, warmup=0)
-                    rec = dict(ngptot=ngptot, mode=mode, order=order,
-                               precision=precision, ms_per_step=ms,
-                               cols_per_s=p.ncol / (ms * 1e-3),
-                               build_s=build_s)
-                    records.append(rec)
-                    print(json.dumps(rec), flush=True)
-                del p
-                torch.cuda.empty_cache()
-    return records
+                            def step():
+                                return cc.cloudsc_fused(p, c, consts,
+                                                        mode=mode)
+
+                            t0 = time.perf_counter()
+                            got = step()
+                            torch.cuda.synchronize()
+                            build_s = time.perf_counter() - t0
+                            equal = all(same_bits(x, y) for x, y in zip(
+                                got, plain(p, c, mode)))
+                            finite = all(bool(torch.isfinite(x).all())
+                                         for x in got)
+                            all_equal &= equal
+                            del got
+                            ms = timing.event_ms(step, a.iters, warmup=0)
+                            rec = dict(ngptot=ngptot, mode=mode, order=order,
+                                       precision=precision, skip=skip,
+                                       foldc=int(form["fc"]),
+                                       foldn=int(form["fn"]),
+                                       foldd=int(form["fd"]),
+                                       rows=len(p.rows), ms_per_step=ms,
+                                       cols_per_s=p.ncol / (ms * 1e-3),
+                                       build_s=build_s, bitwise=equal,
+                                       finite=finite,
+                                       **resources(c, p, mode))
+                            records.append(rec)
+                            print(json.dumps(rec), flush=True)
+                    del p
+                    torch.cuda.empty_cache()
+    return records, all_equal
 
 
 def main(argv=None) -> int:
@@ -111,9 +244,13 @@ def main(argv=None) -> int:
     if not timing.require_cuda("kernel_lab"):
         return 1
     timing.header("kernel_lab")
-    records = run(a)
+    records, all_equal = run(a)
     if a.out:
         Path(a.out).write_text(json.dumps(records, indent=2))
+    if not all_equal:
+        print("kernel_lab: a build's kernel differs from its plain version",
+              file=sys.stderr)
+        return 2
     return 0
 
 

@@ -14,7 +14,11 @@ picks different ones).
 
     python -m cloudsc_tpu_torch.bench.ring_sweep [--geometry 4:128:3 ...]
         [--precision fp32 fp64] [--order sorted] [--ngptot 163840]
-        [--iters 10] [--out FILE]
+        [--foldc 0|1] [--foldn 0|1] [--foldd 0|1] [--iters 10] [--out FILE]
+
+`--foldc/--foldn/--foldd` sweep the build of another form of the pack
+(kernel_lab's flags, one value each; the main path's form by default): its
+ring holds that form's rows.
 
 Exits 1 without a card, and 2 if a geometry's kernel is not bitwise equal
 to the plain version.
@@ -49,6 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--order", nargs="+", default=["sorted"],
                    choices=["cyclic", "grouped", "sorted"])
     p.add_argument("--ngptot", type=int, default=163840)
+    for flag, default in (("--foldc", 0), ("--foldn", 1), ("--foldd", 0)):
+        p.add_argument(flag, type=int, default=default, choices=[0, 1])
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--out", default=None, help="write the records as JSON")
     return p.parse_args(argv)
@@ -72,14 +78,17 @@ def run(a) -> tuple[list[dict], bool]:
 
     geoms = [parse_geometry(g) for g in a.geometry]
     sources = [build.CSRC / "cloudsc_fused.cu"]
+    form = dict(fc=bool(a.foldc), fn=bool(a.foldn), fd=bool(a.foldd))
+    version = cc.KernelVersion(**form)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(geoms)) as ex:
         paths = list(ex.map(
-            lambda g: build.build(verbose=False, ring=g, sources=sources),
-            geoms))
+            lambda g: build.build(verbose=False, ring=g, sources=sources,
+                                  version=version), geoms))
     print(f"# built {len(geoms)} geometries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    libs = [build.load_library(ring=g, sources=sources) for g in geoms]
+    libs = [build.load_library(ring=g, sources=sources, version=version)
+            for g in geoms]
     ptxas = [build.parse_ptxas((p.parent / "ptxas.log").read_text())
              for p in paths]
 
@@ -92,7 +101,7 @@ def run(a) -> tuple[list[dict], bool]:
             t = "f32" if dtype == torch.float32 else "f64"
             c = scheme.derived_consts(params, inp.ptsphy, dtype)
             consts = cc.const_vector(c, "cuda")
-            p = make_pack(inp, params, order, dtype)
+            p = make_pack(inp, params, order, dtype, form)
             want = cc.cloudsc_fused_plain(p, c)
             for text, g, lib, info in zip(a.geometry, geoms, libs, ptxas):
                 occ = cc.occupancy(dtype, lib)
@@ -106,7 +115,8 @@ def run(a) -> tuple[list[dict], bool]:
                 rec = dict(
                     geometry=text, stages=g.stages, block=g.block,
                     min_blocks=g.min_blocks, precision=precision,
-                    order=order, ngptot=a.ngptot,
+                    order=order, ngptot=a.ngptot, rows=len(p.rows),
+                    foldc=a.foldc, foldn=a.foldn, foldd=a.foldd,
                     registers=r["registers"],
                     spill_stores=r.get("spill_stores"),
                     spill_loads=r.get("spill_loads"), stack=r.get("stack"),

@@ -51,6 +51,25 @@ def launch_overhead_ms(iters: int = 100) -> float:
     return event_ms(lambda: x.add_(0.0), iters)
 
 
+# The bound's model (chip_smoke.py, the lab's records). The assumed HBM peak
+# of one H100 SXM (NVIDIA data sheet) at 700 W: a share against it is a
+# modeled byte count over this figure, not a measured rate. Its assumed
+# non-tensor-core peaks, flop/s. K1's operations: the reference's flop
+# model (timer_mod.F90: 12,482,329 per 100 columns).
+PEAK_GBS = 3350.0
+PEAK_FLOPS = {"fp32": 67e12, "fp64": 34e12}
+K1_FLOP_PER_COLUMN = 12482329 / 100
+
+
+def bound(nbytes: float, flops: float, precision: str) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over PEAK_GBS and the operations over
+    PEAK_FLOPS[precision]."""
+    t_bytes = nbytes / (PEAK_GBS * 1e9) * 1e3
+    t_ops = flops / PEAK_FLOPS[precision] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def header(prog: str) -> None:
     """The card and the launch overhead, as comment lines."""
     print(f"# {prog} on {card()}", flush=True)

@@ -2,12 +2,15 @@
 //
 // Replaces the TPU kernel cloudsc_tpu/kernels/pallas_cloudsc.py::_build ->
 // pl.pallas_call(_kernel) (body: _kernel, _sub_level, _write_level_rows and
-// scheme.level_init / scheme.level_step), on the main path's contract: the
-// folded input pack with the streamed ZDQS row, the four derivable flux rows
-// folded out of the outputs. One library holds one scheme version, named by
-// the CLOUDSC_* macros of cloudsc_scheme.cuh (SchemeConfig's four switches
-// and the aerosol couplings, whose 0-5 extra pack rows the ring streams
-// beside the 19 of the reference configuration).
+// scheme.level_init / scheme.level_step), on the folded input pack with the
+// four derivable flux rows folded out of the outputs, in every form the TPU
+// kernel takes: the streamed ZDQS row or the in-line CUADJTQ, with or
+// without the streamed saturation-curve and deposition rows. One library
+// holds one version, named by the CLOUDSC_* macros of cloudsc_scheme.cuh
+// (SchemeConfig's four switches, skips and aerosol couplings, and the
+// pack's form, whose optional rows the ring streams beside the 18 base
+// rows: 19 in the main path's form, 30 with every form row, 5 more with
+// every aerosol coupling).
 //
 // Schedule: the reference's own k-caching schedule. One thread owns one
 // column and integrates it top-down through all levels; the 33 cross-level
@@ -192,9 +195,11 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
     const T plude_in = P(k, R_PLUDE);
     const T paph_k = P(k, R_PAPH);
     const T paph_k1 = P(k + 1, R_PAPH);
+    T curves[NCURVES];
+    curve_rows(P, k, curves);
     Init<T> in;
     level_init(K, P(k, R_ZTP1_IN), P(k, R_ZQV_IN), P(k, R_ZA_IN), zqx_in, pap,
-               in);
+               curves, in);
 
     T plude_row = plude_in, pcovptot_row = Z, tend_t_row = in.tend_t_pre,
       tend_q_row = in.tend_q_pre, tend_a_row = Z;
@@ -210,26 +215,8 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
       x.paph = paph_k;
       x.paph_next = paph_k1;
       x.paph_surf = paph_surf;
-      x.pmf = P(k, R_PMF);
-      x.pmf_next = P(k + 1, R_PMF);
-      x.plu_next = P(k + 1, R_PLU);
-      x.pvervel = P(k, R_PVERVEL);
-      x.zhr = P(k, R_ZHR);
       x.plude_in = plude_in;
-      x.psnde = P(k, R_PSNDE);
-      x.psupsat = P(k, R_PSUPSAT);
-      x.zdqs = P(k, R_ZDQS);
-#if CLOUDSC_LAERICESED
-      x.pre_ice = P(k, R_PRE_ICE);
-#endif
-#if CLOUDSC_LAERICEAUTO
-      x.picrit_aer = P(k, R_PICRIT_AER);
-      x.pnice = P(k, R_PNICE);
-#endif
-#if CLOUDSC_AER_LIQ
-      x.plcrit_aer = P(k, R_PLCRIT_AER);
-      x.pccn = P(k, R_PCCN);
-#endif
+      level_rows(P, k, x);
       x.land = plsm > T(0.5);
       x.ldcum = ldcum;
       x.ktype = ktype;
@@ -363,9 +350,11 @@ init_kernel(const T* __restrict__ pack, const T* __restrict__ col,
     T zqx_in[4];
 #pragma unroll
     for (int m = 0; m < 4; ++m) zqx_in[m] = row[R_ZQX0_IN + m];
+    T curves[NCURVES];
+    curve_rows([&](int, int r) { return row[r]; }, k, curves);
     Init<T> in;
     level_init(K, row[R_ZTP1_IN], row[R_ZQV_IN], row[R_ZA_IN], zqx_in,
-               row[R_PAP], in);
+               row[R_PAP], curves, in);
     v = in.ztp1 + in.zqsmix + in.zfokoop + in.zli;
     write_level(o_lev, o_half, k, nlev, n, j, v);
   }

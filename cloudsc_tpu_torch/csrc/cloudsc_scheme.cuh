@@ -2,13 +2,18 @@
 //
 // A scalar translation of cloudsc_tpu_torch/physics/scheme.py (itself a
 // line-for-line port of cloudsc_tpu/physics/scheme.py) on the folded input
-// contract, for the scheme version the build names: the SchemeConfig
-// switches IWARMRAIN, IEVAPRAIN, IEVAPSNOW, IDEPICE and the four aerosol
-// couplings arrive as the CLOUDSC_* macros (kernels/build.py from
+// contract, for the version the build names: the SchemeConfig switches
+// IWARMRAIN, IEVAPRAIN, IEVAPSNOW, IDEPICE and the four aerosol couplings,
+// the pack's form (CLOUDSC_FC, _FN, _FD: the streamed saturation-curve,
+// ZDQS and deposition rows), the skipped sections (CLOUDSC_SKIP_<tag>, one
+// macro a tag of scheme.SKIP_TAGS), CLOUDSC_DYNAMIC_SKIPS and
+// CLOUDSC_S521_ROUND_SKIP arrive as macros (kernels/build.py from
 // cuda_cloudsc.KernelVersion), and each library holds one version, so no
 // build carries another version's branches in its instruction stream. The
-// reference configuration is (2, 2, 1, 1) without aerosol couplings. `ref:`
-// line numbers point to src/cloudsc_fortran/cloudsc.F90 of the reference.
+// reference configuration is (2, 2, 1, 1) without aerosol couplings, the
+// ZDQS row alone, no skipped section, dynamic skips on and no per-round
+// skip. `ref:` line numbers point to src/cloudsc_fortran/cloudsc.F90 of the
+// reference.
 //
 // Rounding. Every operation is written in the Python module's order; the
 // build passes -fmad=false so no multiply-add is contracted. Literals are
@@ -24,7 +29,8 @@
 // consumer distinguishes, so results are the same values.
 //
 // Dynamic skips are per-thread branches (one column), value-exact like the
-// batch-level branches of the Python code.
+// batch-level branches of the Python code; CLOUDSC_DYNAMIC_SKIPS=0 makes
+// each take its active side.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,8 +38,18 @@
 #if !defined(CLOUDSC_IWARMRAIN) || !defined(CLOUDSC_IEVAPRAIN) || \
     !defined(CLOUDSC_IEVAPSNOW) || !defined(CLOUDSC_IDEPICE) ||   \
     !defined(CLOUDSC_LAERICESED) || !defined(CLOUDSC_LAERICEAUTO) || \
-    !defined(CLOUDSC_LAERLIQAUTOLSP) || !defined(CLOUDSC_LAERLIQCOLL)
-#error "the scheme version comes from kernels/build.py (cuda_cloudsc.KernelVersion)"
+    !defined(CLOUDSC_LAERLIQAUTOLSP) || !defined(CLOUDSC_LAERLIQCOLL) || \
+    !defined(CLOUDSC_FC) || !defined(CLOUDSC_FN) || !defined(CLOUDSC_FD) || \
+    !defined(CLOUDSC_DYNAMIC_SKIPS) || !defined(CLOUDSC_S521_ROUND_SKIP) || \
+    !defined(CLOUDSC_SKIP_S31) || !defined(CLOUDSC_SKIP_S33) ||   \
+    !defined(CLOUDSC_SKIP_S34E) || !defined(CLOUDSC_SKIP_S34C) || \
+    !defined(CLOUDSC_SKIP_S37) || !defined(CLOUDSC_SKIP_S43A) ||  \
+    !defined(CLOUDSC_SKIP_S43B) || !defined(CLOUDSC_SKIP_S43C) || \
+    !defined(CLOUDSC_SKIP_S44A) || !defined(CLOUDSC_SKIP_S44B) || \
+    !defined(CLOUDSC_SKIP_S44C) || !defined(CLOUDSC_SKIP_S45R) || \
+    !defined(CLOUDSC_SKIP_S45S) || !defined(CLOUDSC_SKIP_S46) ||  \
+    !defined(CLOUDSC_SKIP_S521) || !defined(CLOUDSC_SKIP_S522)
+#error "the kernel version comes from kernels/build.py (cuda_cloudsc.KernelVersion)"
 #endif
 #if (CLOUDSC_IWARMRAIN != 1 && CLOUDSC_IWARMRAIN != 2) ||   \
     (CLOUDSC_IEVAPRAIN != 1 && CLOUDSC_IEVAPRAIN != 2) ||   \
@@ -76,13 +92,24 @@ enum Const {
   C_COUNT
 };
 
-// Rows of the folded pack, in the order of pack_rows(True, aer_rows(c)) in
-// kernels/cuda_cloudsc.py: PACK_ROWS, the ZDQS row, then the aerosol rows
-// the build's couplings read.
+// Rows of the folded pack, in the order of pack_rows(fc, fn, fd,
+// aer_rows(c)) in kernels/cuda_cloudsc.py: PACK_ROWS, the form's curve,
+// ZDQS and deposition rows, then the aerosol rows the build's couplings
+// read. The ring follows R_COUNT.
 enum Row {
   R_PMF, R_PLU, R_PAPH, R_ZTP1_IN, R_ZQV_IN, R_ZA_IN, R_PAP, R_PVERVEL,
   R_ZHR, R_PLUDE, R_PSNDE, R_PSUPSAT, R_PVFL, R_PVFI,
-  R_ZQX0_IN, R_ZQX1_IN, R_ZQX2_IN, R_ZQX3_IN, R_ZDQS,
+  R_ZQX0_IN, R_ZQX1_IN, R_ZQX2_IN, R_ZQX3_IN,
+#if CLOUDSC_FC
+  R_ZQSMIX, R_ZQSLIQ, R_ZQSICE, R_ZFOEEW, R_ZFOEEWMT, R_ZFOEELIQT,
+  R_ZFOKOOP, R_ZFOEELIQ, R_ZFOEEICE,
+#endif
+#if CLOUDSC_FN
+  R_ZDQS,
+#endif
+#if CLOUDSC_FD
+  R_ZDEP0, R_ZINFAC,
+#endif
 #if CLOUDSC_LAERICESED
   R_PRE_ICE,
 #endif
@@ -96,6 +123,11 @@ enum Row {
 };
 
 constexpr int IL = 0, II = 1, IR = 2, IS = 3, IV = 4, NCLV = 5;
+// the saturation-curve rows of the fc form, R_ZQSMIX on
+constexpr int NCURVES = 9;
+// false: every dynamic skip takes its active side (the oracle of their
+// value-exactness, SchemeConfig.dynamic_skips)
+constexpr bool DYNAMIC_SKIPS = CLOUDSC_DYNAMIC_SKIPS;
 constexpr double ZEPSEC = 1.0e-14;
 constexpr double ZTW1 = 1329.31, ZTW2 = 0.0074615, ZTW3 = 0.85e5,
                  ZTW4 = 40.637, ZTW5 = 275.0;
@@ -135,6 +167,12 @@ __device__ __forceinline__ T foedem_a(const T* K, T t, T alfa) {
 template <typename T> __device__ __forceinline__ T foeldcpm_a(const T* K, T alfa) {
   return alfa * K[C_RALVDCP] + (T(1) - alfa) * K[C_RALSDCP];
 }
+template <typename T>
+__device__ __forceinline__ T foeewm_a(const T* K, T t, T alfa) {
+  return K[C_r2es] *
+         (alfa * d_exp(K[C_r3les] * (t - K[C_RTT]) / (t - K[C_R4LES])) +
+          (T(1) - alfa) * d_exp(K[C_r3ies] * (t - K[C_RTT]) / (t - K[C_R4IES])));
+}
 
 // -- section 1: level init (scheme.level_init, folded contract) -------------
 template <typename T> struct Init {
@@ -144,10 +182,12 @@ template <typename T> struct Init {
   T tend_t_pre, tend_q_pre, zlneg[NCLV];
 };
 
+// `curves`: the fc form's nine rows of the level (CURVE_ROWS order), read
+// only in a build with CLOUDSC_FC
 template <typename T>
 __device__ __forceinline__ void level_init(const T* K, T ztp1_in, T zqv_in,
                                            T za_in, const T zqx_in[4], T pap,
-                                           Init<T>& o) {
+                                           const T* curves, Init<T>& o) {
   const T Z = T(0), O = T(1);
   const T zqtmst = K[C_zqtmst], RETV = K[C_RETV], rlmin = K[C_rlmin];
   T zqx[NCLV];
@@ -191,6 +231,19 @@ __device__ __forceinline__ void level_init(const T* K, T ztp1_in, T zqv_in,
   // saturation curves (ref: 749-784)
   const T t = ztp1_in;
   o.zfoealfa = foealfa(K, t);
+#if CLOUDSC_FC
+  // folded at load time in fp64 (physics/satfold.curve_rows)
+  o.zqsmix = curves[0];
+  o.zqsliq = curves[1];
+  o.zqsice = curves[2];
+  o.zfoeew = curves[3];
+  o.zfoeewmt = curves[4];
+  o.zfoeeliqt = curves[5];
+  o.zfokoop = curves[6];
+  o.zfoeeliq = curves[7];
+  o.zfoeeice = curves[8];
+#else
+  (void)curves;
   const T exp_liq = d_exp(K[C_r3les] * (t - K[C_RTT]) / (t - K[C_R4LES]));
   const T exp_ice = d_exp(K[C_r3ies] * (t - K[C_RTT]) / (t - K[C_R4IES]));
   o.zfoeeliq = K[C_r2es] * exp_liq;
@@ -205,6 +258,7 @@ __device__ __forceinline__ void level_init(const T* K, T ztp1_in, T zqv_in,
   o.zfoeeliqt = mn(o.zfoeeliq / pap, T(0.5));
   o.zqsliq = o.zfoeeliqt / (O - RETV * o.zfoeeliqt);
   o.zfokoop = mn(K[C_rkoop1] - K[C_rkoop2] * t, o.zfoeeliq / o.zfoeeice);
+#endif
 
   // cloud fraction in [0,1]; liquid/ice split (ref: 786-808)
   o.za = mx(Z, mn(O, za));
@@ -228,9 +282,10 @@ template <typename T> struct Carry {
 // the per-level inputs of level_step beyond Init
 template <typename T> struct LevelX {
   T ztp1_prev, za_prev, pap, pap_prev, paph, paph_next, paph_surf;
-  T pmf, pmf_next, plu_next, pvervel, zhr, plude_in, psnde, psupsat, zdqs;
-  // the aerosol rows; each is set and read only in a build whose couplings
-  // read it
+  T pmf, pmf_next, plu_next, pvervel, zhr, plude_in, psnde, psupsat;
+  // the form's rows and the aerosol rows; each is set and read only in a
+  // build that streams it
+  T zdqs, zdep0, zinfac;
   T pre_ice, picrit_aer, pnice, plcrit_aer, pccn;
   bool land, ldcum, not_first, not_last;
   int ktype;
@@ -239,6 +294,52 @@ template <typename T> struct LevelX {
 template <typename T> struct Ys {
   T zqxn[NCLV], plude, pcovptot, tend_t, tend_q, tend_a;
 };
+
+// the streamed rows of level_step's inputs, through `P(lev, row)`: level k's
+// and the k+1 rows pmf and plu
+template <typename T, typename Rows>
+__device__ __forceinline__ void level_rows(const Rows& P, int k,
+                                           LevelX<T>& x) {
+  x.pmf = P(k, R_PMF);
+  x.pmf_next = P(k + 1, R_PMF);
+  x.plu_next = P(k + 1, R_PLU);
+  x.pvervel = P(k, R_PVERVEL);
+  x.zhr = P(k, R_ZHR);
+  x.psnde = P(k, R_PSNDE);
+  x.psupsat = P(k, R_PSUPSAT);
+#if CLOUDSC_FN
+  x.zdqs = P(k, R_ZDQS);
+#endif
+#if CLOUDSC_FD
+  x.zdep0 = P(k, R_ZDEP0);
+  x.zinfac = P(k, R_ZINFAC);
+#endif
+#if CLOUDSC_LAERICESED
+  x.pre_ice = P(k, R_PRE_ICE);
+#endif
+#if CLOUDSC_LAERICEAUTO
+  x.picrit_aer = P(k, R_PICRIT_AER);
+  x.pnice = P(k, R_PNICE);
+#endif
+#if CLOUDSC_AER_LIQ
+  x.plcrit_aer = P(k, R_PLCRIT_AER);
+  x.pccn = P(k, R_PCCN);
+#endif
+}
+
+// the fc form's nine curve rows of level k, through `P(lev, row)`
+template <typename T, typename Rows>
+__device__ __forceinline__ void curve_rows(const Rows& P, int k,
+                                           T (&curves)[NCURVES]) {
+#if CLOUDSC_FC
+#pragma unroll
+  for (int i = 0; i < NCURVES; ++i) curves[i] = P(k, R_ZQSMIX + i);
+#else
+  (void)P;
+  (void)k;
+  (void)curves;
+#endif
+}
 
 // -- sections 3-6 (scheme.level_step) ----------------------------------------
 template <typename T>
@@ -331,6 +432,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
   const T zsupsat = high_a ? zsup_cld : zsup_env;
   const bool has_sup = zsupsat > EPS;
   const bool warm = ztp1 > K[C_rthomo];
+#if !CLOUDSC_SKIP_S31
 #pragma unroll
   for (int m = IL; m <= II; ++m) {
     const bool w = m == IL ? warm : !warm;
@@ -350,6 +452,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
     zqxfg[m] = zqxfg[m] + amt;
   }
   solac = has_ps ? (O - za) * zfaci : solac;
+#endif
 
   // ---- 3.2 detrainment from convection (ref: 1100-1127) ----
   const T plude_scaled = x.plude_in * zdtgdp;
@@ -366,6 +469,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
   // ---- 3.3 subsidence source + in-layer evaporation (ref: 1143-1194) ----
   const T zmf = mx(Z, x.pmf * zdtgdp);
   T zacust = zmf * cr.zanewm1;
+#if !CLOUDSC_SKIP_S33
   {
     T zlcust[2];
 #pragma unroll
@@ -390,6 +494,9 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
     zacust = zlfinalsum < EPS ? Z : zacust;
     solac = solac + (not_first ? zacust : Z);
   }
+#else
+  (void)zacust;
+#endif
   // subsidence sink to layer below (ref: 1201-1217)
   const T zmfdn = not_last ? mx(Z, x.pmf_next * zdtgdp) : Z;
   solab = solab + zmfdn;
@@ -408,6 +515,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
     zleros = mn(zleros, zevaplimmix);
     zleros = mn(zleros, in.zli);
     const T zaeros = zleros / (has_cld ? zlicld : O);
+#if !CLOUDSC_SKIP_S34E
     solac = solac - (has_cld ? zaeros : Z);
 #pragma unroll
     for (int m = IL; m <= II; ++m) {
@@ -416,11 +524,47 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       sqa[IV][m] = sqa[IV][m] + amt;
       sqa[m][IV] = sqa[m][IV] + -amt;
     }
+#else
+    (void)zaeros;
+#endif
   }
 
   // ---- 3.4b condensation/evaporation from dqsat/dt (ref: 1281-1325) ----
+#if CLOUDSC_FN
   // the CUADJTQ result, folded at load time (physics/satfold.newton_zdqs)
   const T zdqs = x.zdqs;
+#else
+  // the forcing chain and the in-line CUADJTQ, 2 Newton iterations (ref:
+  // 1303-1319). The Python scalars zrdcp and 0.5 * RG are the constants'
+  // zrdcp_half and RG scaled by powers of two, which round alike in
+  // either precision.
+  T zdqs;
+  {
+    const T zdtdp = T(2) * K[C_zrdcp_half] * ztp1 / pap;
+    const T zdpmxdt = zdp * zqtmst;
+    const T zmfdn2 = not_last ? x.pmf_next : Z;
+    T zwtot = x.pvervel + (T(0.5) * RG) * (x.pmf + zmfdn2);
+    zwtot = mn(zdpmxdt, mx(-zdpmxdt, zwtot));
+    const T zdtdiab =
+        mn(zdpmxdt * zdtdp, mx(-zdpmxdt * zdtdp, x.zhr)) * ptsphy;
+    const T zdtforc = zdtdp * zwtot * ptsphy + zdtdiab;
+    T tloc = mx(ztp1 + zdtforc, T(160.0));
+    T qloc = zqsmix;
+    const T zqp = O / pap;
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const T alfa_n = foealfa(K, tloc);
+      T zqsat = mn(foeewm_a(K, tloc, alfa_n) * zqp, T(0.5));
+      const T zcor_n = O / (O - RETV * zqsat);
+      zqsat = zqsat * zcor_n;
+      const T zcond = (qloc - zqsat) /
+                      (O + zqsat * zcor_n * foedem_a(K, tloc, alfa_n));
+      tloc = tloc + foeldcpm_a(K, alfa_n) * zcond;
+      qloc = qloc - zcond;
+    }
+    zdqs = qloc - zqsmix;
+  }
+#endif
 
   // 3.4a evaporation of clouds (ref: 1333-1356)
   {
@@ -428,6 +572,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
     T zlevap = za * mn(zdqs, zlicld);
     zlevap = mn(zlevap, zevaplimmix);
     zlevap = mn(zlevap, mx(zqsmix - zqx[IV], Z));
+#if !CLOUDSC_SKIP_S34C
 #pragma unroll
     for (int m = IL; m <= II; ++m) {
       const T frac = m == IL ? in.zliqfrac : in.zicefrac;
@@ -435,6 +580,9 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       sqa[IV][m] = sqa[IV][m] + amt;
       sqa[m][IV] = sqa[m][IV] + -amt;
     }
+#else
+    (void)evap_m;
+#endif
   }
 
   // 3.4b(1) increase of cloud water in existing clouds (ref: 1362-1396)
@@ -449,6 +597,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
     zlcond1 = mx(mn(zlcond1, zcdmax), Z);
     zlcond1 = za * zlcond1;
     zlcond1 = zlcond1 < rlmin ? Z : zlcond1;
+#if !CLOUDSC_SKIP_S34C
 #pragma unroll
     for (int m = IL; m <= II; ++m) {
       const bool w = m == IL ? warm : !warm;
@@ -457,6 +606,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       sqa[IV][m] = sqa[IV][m] + -amt;
       zqxfg[m] = zqxfg[m] + amt;
     }
+#endif
   }
 
   // 3.4b(2) generation of new clouds (ref: 1400-1499)
@@ -490,6 +640,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
     const bool kill = (zlcond2 < rlmin) || ((O - za) < EPS);
     zlcond2 = kill ? Z : zlcond2;
     zacond = (kill || zlcond2 == Z) ? Z : zacond;
+#if !CLOUDSC_SKIP_S34C
     solac = solac + (c2m ? zacond : Z);
 #pragma unroll
     for (int m = IL; m <= II; ++m) {
@@ -499,6 +650,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       sqa[IV][m] = sqa[IV][m] + -amt;
       zqxfg[m] = zqxfg[m] + amt;
     }
+#endif
   }
 
   // ---- 3.7 cloud-top distance carry (ref: 1529-1533) ----
@@ -545,10 +697,16 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
 #pragma unroll
   for (int m = 0; m < NCLV; ++m) { zqxn[m] = zqx[m]; pf_next[m] = Z; }
 
-  if (region_m) {
+  if (!DYNAMIC_SKIPS || region_m) {
     // 3.7 ice deposition (ref: 1501-1689)
     {
       const bool dep_m = (ztp1 < RTT) && (zqxfg[IL] > rlmin);
+#if CLOUDSC_FD
+      // folded at load time in fp64 up to the raw amount
+      // (physics/satfold.dep_rows); the carry-dependent tail stays
+      const T zinfactor = x.zinfac;
+      T zdepos = x.zdep0;
+#else
       const T zvpice = in.zfoeeice * RV / RD;
       const T zvpliq = zvpice * zfokoop;
       const T zicenuclei = T(1000.0) *
@@ -580,17 +738,22 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
                            d_pow(zpr02, K[C_rcl_const5i]) / d_sqrt(zcorrfac2);
       T zdepos = mx(za * zterm1 * zterm2 * ptsphy, Z);
 #endif
+#endif
       const T ztopred = mn(
           zinfactor + (O - zinfactor) * (K[C_rdepliqrefrate] +
                                          zcldtopdist / K[C_rdepliqrefdepth]),
           O);
       zdepos = mn(zdepos, zqxfg[IL]);
       zdepos = zdepos * ztopred;
+#if !CLOUDSC_SKIP_S37
       const T amt = dep_m ? zdepos : Z;
       sqa[II][IL] = sqa[II][IL] + amt;
       sqa[IL][II] = sqa[IL][II] + -amt;
       zqxfg[II] = zqxfg[II] + amt;
       zqxfg[IL] = zqxfg[IL] - amt;
+#else
+      (void)dep_m;
+#endif
     }
 
     // revised in-cloud condensate (ref: 1700-1705)
@@ -636,7 +799,12 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       const T zlcrit = K[C_rlcritsnow];
 #endif
       const T zsnowaut = zzco * (O - d_exp(-sq(zicecld / zlcrit)));
+#if !CLOUDSC_SKIP_S43A
       sqb[IS][II] = sqb[IS][II] + (snow_m ? zsnowaut : Z);
+#else
+      (void)zsnowaut;
+      (void)snow_m;
+#endif
     }
 
     // 4.3b warm-rain autoconversion/accretion (ref: 1819-1927)
@@ -681,6 +849,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       zrainaut = above ? zrainaut : Z;
       zrainacc = above ? zrainacc : Z;
       const bool cold = ztp1 <= RTT;
+#if !CLOUDSC_SKIP_S43B
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int dst = i == 0 ? IS : IR;
@@ -690,6 +859,10 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
         sqa[IL][dst] = sqa[IL][dst] + -(mm ? zrainaut : Z);
         sqa[IL][dst] = sqa[IL][dst] + -(mm ? zrainacc : Z);
       }
+#else
+      (void)cold;
+      (void)zrainacc;
+#endif
 #endif
     }
 
@@ -700,7 +873,12 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       T zsnowrime = T(0.3) * zcovptot * ptsphy * K[C_rcl_const7s] *
                     zfallcorr * rime_pow;
       zsnowrime = mn(zsnowrime, O);
+#if !CLOUDSC_SKIP_S43C
       sqb[IS][IL] = sqb[IS][IL] + (rime2 ? zsnowrime : Z);
+#else
+      (void)zsnowrime;
+      (void)rime2;
+#endif
     }
 
     // 4.4a melting of snow and ice (ref: 1990-2034)
@@ -710,6 +888,9 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
                                                 - T(ZTW4) * (ztp1 - T(ZTW5)));
       const T zcons1 = d_abs(ptsphy * (O + T(0.5) * ztdmtw0) / K[C_rtaumel]);
       const T zmeltmax = melt_m ? mx(ztdmtw0 * zcons1 * zrldcp, Z) : Z;
+#if CLOUDSC_SKIP_S44A
+      (void)zmeltmax;
+#else
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int m = i == 0 ? II : IS;
@@ -723,6 +904,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
         sqa[n][m] = sqa[n][m] + amt;
         sqa[m][n] = sqa[m][n] + -amt;
       }
+#endif
     }
 
     // 4.4c freezing of liquid (ref: 2099-2112)
@@ -730,13 +912,18 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       const T zfrzmax = mx((K[C_rthomo] - ztp1) * zrldcp, Z);
       const bool frz_m = (zfrzmax > EPS) && (zqxfg[IL] > EPS);
       const T zfrz = mn(zqxfg[IL], zfrzmax);
+#if !CLOUDSC_SKIP_S44C
       const T amt = frz_m ? zfrz : Z;
       sqa[II][IL] = sqa[II][IL] + amt;
       sqa[IL][II] = sqa[IL][II] + -amt;
+#else
+      (void)zfrz;
+      (void)frz_m;
+#endif
     }
 
     // rain sub-branch: 4.4b freezing + 4.5 rain evaporation (Abel-Boutle)
-    if (rain_p || (zqxfg[IR] > EPS)) {
+    if (!DYNAMIC_SKIPS || rain_p || (zqxfg[IR] > EPS)) {
       const T lam_den = rain_p ? zrho * zqx[IR] : O;
       const T zlambda_c6 = d_pow(K[C_rcl_fac1] / lam_den, K[C_fac2_c6r]);
       const T ztemp = K[C_rcl_fzrab] * (ztp1 - RTT);
@@ -748,9 +935,14 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       const T zfrzmax = llrainliq ? zfrzmax_liq : zfrzmax_mix;
       const bool frz_m = frz_cold && (zfrzmax > EPS);
       const T zfrz = mn(zqx[IR], zfrzmax);
-      T amt = frz_m ? zfrz : Z;
-      sqa[IS][IR] = sqa[IS][IR] + amt;
-      sqa[IR][IS] = sqa[IR][IS] + -amt;
+#if !CLOUDSC_SKIP_S44B
+      const T frz = frz_m ? zfrz : Z;
+      sqa[IS][IR] = sqa[IS][IR] + frz;
+      sqa[IR][IS] = sqa[IR][IS] + -frz;
+#else
+      (void)zfrz;
+      (void)frz_m;
+#endif
 
 #if CLOUDSC_IEVAPRAIN == 1
       // 4.5 rain evaporation, Sundqvist (ref: 2121-2184)
@@ -801,7 +993,8 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       const T zdpevap = zcovpclr * zbeta * ptsphy * zsubsat / zdenom;
       const T zevap = mn(zdpevap, zqxfg[IR]);
 #endif
-      amt = llo1 ? zevap : Z;
+#if !CLOUDSC_SKIP_S45R
+      const T amt = llo1 ? zevap : Z;
       sqa[IV][IR] = sqa[IV][IR] + amt;
       sqa[IR][IV] = sqa[IR][IV] + -amt;
       zcovptot = llo1
@@ -809,6 +1002,10 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
                zcovptot - mx(Z, (zcovptot - za) * zevap / zqxfg[IR]))
           : zcovptot;
       zqxfg[IR] = zqxfg[IR] - amt;
+#else
+      (void)zevap;
+      (void)llo1;
+#endif
     }
 
 #if CLOUDSC_IEVAPSNOW == 1
@@ -833,6 +1030,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
       const T zdpr = zcovpclr * zbeta * (zqsice - zqe) / zdenom * zdp * zrg_r;
       const T zdpevap = zdpr * zdtgdp;
       const T zevap = mn(zdpevap, zqxfg[IS]);
+#if !CLOUDSC_SKIP_S45S
       const T amt = llo1 ? zevap : Z;
       sqa[IV][IS] = sqa[IV][IS] + amt;
       sqa[IS][IV] = sqa[IS][IV] + -amt;
@@ -841,6 +1039,10 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
                zcovptot - mx(Z, (zcovptot - za) * zevap / zqxfg[IS]))
           : zcovptot;
       zqxfg[IS] = zqxfg[IS] - amt;
+#else
+      (void)zevap;
+      (void)llo1;
+#endif
     }
 #else
     // 4.5 snow sublimation, PSD-based (ref: 2349-2419); ZTCG = ZFACX1S = 1
@@ -885,14 +1087,17 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
 #endif
 
     // 4.6 evaporate small precipitation amounts (ref: 2426-2435)
+#if !CLOUDSC_SKIP_S46
 #pragma unroll
     for (int m = IR; m <= IS; ++m) {
       const T v = zqxfg[m] < rlmin ? zqxfg[m] : Z;
       sqa[IV][m] = sqa[IV][m] + v;
       sqa[m][IV] = sqa[m][IV] + -v;
     }
+#endif
 
     // 5.2.1 conservation scaling of explicit sinks (ref: 2467-2580)
+#if !CLOUDSC_SKIP_S521
     {
       T zsinksum[NCLV], zmax[NCLV];
       bool ok = true;
@@ -905,7 +1110,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
         zmax[m] = mx(zqx[m], EPS);
         ok = ok && (zsinksum[m] <= zmax[m]);
       }
-      if (!ok) {
+      if (!DYNAMIC_SKIPS || !ok) {
         T zratio[NCLV], ratio_fin[NCLV];
         int rank[NCLV];
 #pragma unroll
@@ -928,8 +1133,29 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
 #pragma unroll
           for (int n = 0; n < NCLV; ++n) neg0[m][n] = sqa[m][n] < Z;
         }
+#if CLOUDSC_S521_ROUND_SKIP
+        // the per-round skip (scheme.py's s521_round_skip): species m's
+        // negative entries alone within zmax[m] means no earlier round can
+        // make it overshoot, and its round is the identity (zmax / zmax)
+        bool never_over[NCLV];
+#pragma unroll
+        for (int m = 0; m < NCLV; ++m) {
+          T npart = Z;
+#pragma unroll
+          for (int n = 0; n < NCLV; ++n)
+            npart = npart + (neg0[m][n] ? -sqa[m][n] : Z);
+          never_over[m] = npart <= zmax[m];
+        }
+#endif
 #pragma unroll
         for (int round = 1; round < NCLV; ++round) {
+#if CLOUDSC_S521_ROUND_SKIP
+          bool unsafe = false;
+#pragma unroll
+          for (int m = 0; m < NCLV; ++m)
+            unsafe = unsafe || (rank[m] == round && !never_over[m]);
+          if (DYNAMIC_SKIPS && !unsafe) continue;
+#endif
           T num = Z, den = O;
 #pragma unroll
           for (int m = 0; m < NCLV; ++m) {
@@ -961,6 +1187,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
         }
       }
     }
+#endif
 
     // 5.2.2 implicit 5x5 solve: LHS + non-pivoting LU (ref: 2589-2668)
     {
@@ -985,6 +1212,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
         for (int n = 1; n < NCLV; ++n) s = s + sqa[m][n];
         zqxn[m] = zqx[m] + s;
       }
+#if !CLOUDSC_SKIP_S522
 #pragma unroll
       for (int jn = 0; jn < NCLV - 1; ++jn) {
 #pragma unroll
@@ -1009,6 +1237,7 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
           zqxn[jn] = zqxn[jn] - qlhs[jn][jm] * zqxn[jm];
         zqxn[jn] = zqxn[jn] / qlhs[jn][jn];
       }
+#endif
     }
 
     // clip small/negative values to vapour (ref: 2673-2680)

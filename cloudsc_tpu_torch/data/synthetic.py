@@ -12,6 +12,11 @@ the pack or the field dict expands them.
 `VERSION_CASES` names the scheme versions that are checked against each
 other beyond the reference configuration: the four single alternates and
 the aerosol build, each with the input that takes its branch.
+`FORM_CASES` names K1's form builds that are held to their plain version:
+the seven other (fc, fn, fd) packs, two skip sets that between them drop
+all 16 sections (the second with the per-round 5.2.1 skip) and the build
+without dynamic skips; between them every macro branch of the scheme
+header.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import dataclasses
 
 import numpy as np
 
-from ..physics.scheme import SchemeConfig
+from ..physics.scheme import SKIP_TAGS, SchemeConfig
 
 # physically plausible aerosol values (CCN cm-3, IN m-3, effective ice
 # radius m, critical liquid / ice water)
@@ -38,6 +43,24 @@ VERSION_CASES = {
     "ievapsnow2": ((2, 2, 2, 1), "snapshot"),
     "idepice2": ((2, 2, 1, 2), "snapshot"),
     "aerosol": ((1, 2, 1, 1), "aerosol"),
+}
+
+# skip set A, and B = the other eight tags
+SKIP_A = frozenset({"s31", "s34e", "s37", "s43b", "s44a", "s44c", "s45s",
+                    "s521"})
+SKIP_B = frozenset(SKIP_TAGS) - SKIP_A
+# name -> (the pack's form keywords {fc, fn, fd}, SchemeConfig keywords)
+FORM_CASES = {
+    "fn_off": (dict(fn=False), {}),
+    "fn_fd": (dict(fd=True), {}),
+    "fc_fn": (dict(fc=True), {}),
+    "fc_fn_fd": (dict(fc=True, fd=True), {}),
+    "fd_inline": (dict(fn=False, fd=True), {}),
+    "fc_inline": (dict(fc=True, fn=False), {}),
+    "fc_fd_inline": (dict(fc=True, fn=False, fd=True), {}),
+    "skip_a": ({}, dict(skip=SKIP_A)),
+    "skip_b_round": ({}, dict(skip=SKIP_B, s521_round_skip=True)),
+    "no_dynamic_skips": ({}, dict(dynamic_skips=False)),
 }
 
 

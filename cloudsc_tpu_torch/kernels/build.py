@@ -10,12 +10,13 @@ Flags: sm_90a, -O3, C++17, -fmad=false (no multiply-add contraction, so the
 kernels agree with their plain versions to a few ulps; the probes write
 their multiply-adds as explicit fmaf) and no fast math, plus K1's ring
 geometry as -D macros (`cuda_cloudsc.RING`, or another geometry for a
-sweep: `bench/ring_sweep.py`), K1's scheme version as -D macros
-(`cuda_cloudsc.KernelVersion`) and K3's ring geometry as -D macros
+sweep: `bench/ring_sweep.py`), K1's version as -D macros
+(`cuda_cloudsc.KernelVersion`: the scheme version, the pack's form, the
+skipped sections and the skip switches) and K3's ring geometry as -D macros
 (`cuda_probes.COPY_RING`, read when the flags are made). The default build
-holds every source with the reference configuration; another scheme
-version builds K1's source alone into its own directory at first use. A
-failed build raises.
+holds every source with the reference configuration on the main path's
+form; another version builds K1's source alone into its own directory at
+first use. A failed build raises.
 """
 
 from __future__ import annotations
@@ -72,8 +73,9 @@ def nvcc_flags(ring=None, version=None) -> tuple:
     """NVCC_FLAGS, K1's ring geometry (a `cuda_cloudsc.RingGeometry`; None
     is `RING`) as the CLOUDSC_RING_<STAGES|BLOCK|MIN_BLOCKS> macros of
     csrc/cloudsc_fused.cu, K1's scheme version (a
-    `cuda_cloudsc.KernelVersion`; None is the reference configuration) as
-    the CLOUDSC_<switch> macros of csrc/cloudsc_scheme.cuh, and K3's ring
+    `cuda_cloudsc.KernelVersion`; None is the reference configuration on
+    the main path's form) as the CLOUDSC_* macros of
+    csrc/cloudsc_scheme.cuh, and K3's ring
     (`cuda_probes.COPY_RING`) as the COPY_RING_<STAGES|CHUNK|CTAS> macros
     of csrc/probes.cu."""
     from . import cuda_cloudsc, cuda_probes

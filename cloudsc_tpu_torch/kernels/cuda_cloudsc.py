@@ -1,7 +1,9 @@
 """The fused CLOUDSC step: folded input pack, CUDA kernel, plain version, outputs.
 
-Counterpart of `cloudsc_tpu/kernels/pallas_cloudsc.py` on the main path
-(folded layout + streamed ZDQS row + folded-out flux rows, grouped columns).
+Counterpart of `cloudsc_tpu/kernels/pallas_cloudsc.py`: the folded layout
+with the folded-out flux rows, in every form the TPU kernel takes (the
+optional streamed saturation-curve, ZDQS and deposition rows; the main path
+streams ZDQS alone), on grouped or cyclic columns.
 The TPU kernel it replaces is `_build` -> `pl.pallas_call(_kernel)` there; its
 Hopper translation is `csrc/cloudsc_fused.cu` (with `csrc/cloudsc_scheme.cuh`),
 built by `kernels/build.py`.
@@ -11,8 +13,8 @@ element (k, r, j) at `(k*nrows + r)*ncol + j`, so one thread per column reads
 and writes coalesced. Per-level rows carry an edge-replicated row `nlev`;
 `paph` has its real surface value there. Nothing of the TPU layout carries
 over (no (8, 128) tiles, no padding: the kernel bounds-checks its column).
-The pack states its own layout — its row names, and whether the ZDQS row is
-streamed (`fn`) — so no consumer infers it from a row count.
+The pack states its own layout — its row names, and which optional rows it
+streams (`fc`, `fn`, `fd`) — so no consumer infers it from a row count.
 
 `cloudsc_fused` launches the kernel for a CUDA pack (or raises) and runs
 `cloudsc_fused_plain` — a level loop over `physics.scheme` on `(ncol,)` rows
@@ -29,16 +31,17 @@ shared-memory stages filled by asynchronous copies. `RING` holds its
 geometry, the same in both precisions (the build passes it to the source
 as macros),
 `ring_schedule` models its slots and copy groups, and `occupancy` reads
-what the built kernel runs with on the card. Each scheme version
-(`KernelVersion`: SchemeConfig's switches and the aerosol couplings) is a
-build of its own, made at first use; `kernel_version(c)` names the one a
-configuration runs.
+what the built kernel runs with on the card. Each version of the kernel
+(`KernelVersion`: SchemeConfig's switches, skips and the aerosol couplings,
+and the pack's form) is a build of its own, made at first use;
+`kernel_version(c, p.form)` names the one a configuration and pack run.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -66,6 +69,14 @@ PACK_ROWS = (
     "zqx0_in", "zqx1_in", "zqx2_in", "zqx3_in",
 )
 ZDQS_ROW = "zdqs"
+# the optional rows of the other forms (pallas_cloudsc._CURVE_PACK_ROWS,
+# _DEP_PACK_ROWS): section 1's saturation block and 3.7's deposition chain
+CURVE_ROWS = satfold.CURVE_ROWS
+DEP_ROWS = satfold.DEP_ROWS
+# the forms' environment switches and defaults (pallas_cloudsc.py:258-278)
+FOLD_ENV = (("fc", "CLOUDSC_FOLD_CURVES", "0"),
+            ("fn", "CLOUDSC_FOLD_NEWTON", "1"),
+            ("fd", "CLOUDSC_FOLD_DEP", "0"))
 # per-column rows of `col`
 COL_ROWS = ("plsm", "ldcum", "ktype", "paph_surf")
 # rows of the per-level output buffer (the vapour-slot cloud tendency is
@@ -151,7 +162,7 @@ class RingGeometry:
     def smem_bytes(self, itemsize: int, nrows: int | None = None) -> int:
         """Dynamic shared memory of one block: [S][rows][block] values, for
         a pack of `nrows` rows (the reference configuration's 19 if None)."""
-        nrows = len(pack_rows(True)) if nrows is None else nrows
+        nrows = len(pack_rows()) if nrows is None else nrows
         return self.stages * nrows * self.block * itemsize
 
 
@@ -164,10 +175,12 @@ RING = RingGeometry(stages=4, block=128, min_blocks=2)
 
 @dataclasses.dataclass(frozen=True)
 class KernelVersion:
-    """The scheme version one build of K1 computes: SchemeConfig's four
-    switches and the aerosol couplings. kernels/build.py passes it to
-    csrc/cloudsc_scheme.cuh as the CLOUDSC_* macros, one library a
-    version. The liquid couplings act only under IWARMRAIN=1, so
+    """What one build of K1 computes: SchemeConfig's four switches and the
+    aerosol couplings, the pack's form (`fc`, `fn`, `fd`: its optional
+    rows), the skipped sections (`skip`, a frozenset of scheme.SKIP_TAGS),
+    `dynamic_skips` and `s521_round_skip`. kernels/build.py passes it to
+    csrc/cloudsc_scheme.cuh as the CLOUDSC_* macros (one a skip tag), one
+    library a version. The liquid couplings act only under IWARMRAIN=1, so
     `kernel_version` drops them elsewhere and such a configuration shares
     its build with the uncoupled one."""
 
@@ -179,22 +192,47 @@ class KernelVersion:
     laericeauto: bool = False
     laerliqautolsp: bool = False
     laerliqcoll: bool = False
+    fc: bool = False
+    fn: bool = True
+    fd: bool = False
+    skip: frozenset = frozenset()
+    dynamic_skips: bool = True
+    s521_round_skip: bool = False
 
     def macros(self) -> tuple:
-        return tuple(f"-DCLOUDSC_{f.name.upper()}={int(getattr(self, f.name))}"
-                     for f in dataclasses.fields(self))
+        out = []
+        for f in dataclasses.fields(self):
+            if f.name == "skip":
+                out += [f"-DCLOUDSC_SKIP_{t.upper()}={int(t in self.skip)}"
+                        for t in scheme.SKIP_TAGS]
+            else:
+                out.append(f"-DCLOUDSC_{f.name.upper()}="
+                           f"{int(getattr(self, f.name))}")
+        return tuple(out)
 
 
-# the reference configuration (2, 2, 1, 1), no aerosol coupling
+# the reference configuration (2, 2, 1, 1), no aerosol coupling, the main
+# path's form (the streamed ZDQS row alone), no skip
 DEFAULT_VERSION = KernelVersion()
 
 
-def kernel_version(c) -> KernelVersion:
-    """The build that computes `derived_consts` `c`'s scheme version."""
+def kernel_version(c, form=None) -> KernelVersion:
+    """The build that computes `derived_consts` `c`'s configuration on a
+    pack of `form` ({"fc", "fn", "fd"} -> bool, `FoldedPack.form`; the
+    main path's, the streamed ZDQS row alone, if None)."""
     liq = c.IWARMRAIN == 1
     return KernelVersion(
         c.IWARMRAIN, c.IEVAPRAIN, c.IEVAPSNOW, c.IDEPICE, c.LAERICESED,
-        c.LAERICEAUTO, liq and c.LAERLIQAUTOLSP, liq and c.LAERLIQCOLL)
+        c.LAERICEAUTO, liq and c.LAERLIQAUTOLSP, liq and c.LAERLIQCOLL,
+        skip=frozenset(c.skip), dynamic_skips=bool(c.dynamic_skips),
+        s521_round_skip=bool(c.s521_round_skip), **(form or {}))
+
+
+def fold_flags() -> dict:
+    """{"fc", "fn", "fd"} -> bool from CLOUDSC_FOLD_CURVES / _NEWTON / _DEP
+    (defaults 0 / 1 / 0, as the JAX package's readers)."""
+    return {k: os.environ.get(var, default) == "1"
+            for k, var, default in FOLD_ENV}
 
 
 def ring_schedule(nlev: int, stages: int) -> list[tuple]:
@@ -257,12 +295,20 @@ def aer_rows(c) -> list[str]:
 @dataclasses.dataclass
 class FoldedPack:
     """The folded input pack with its own layout: `pack (nlev+1, nrows,
-    ncol)`, `col (4, ncol)`, the row names and the streamed-ZDQS flag."""
+    ncol)`, `col (4, ncol)`, the row names and its form: whether it streams
+    the saturation-curve rows (`fc`), the ZDQS row (`fn`) and the
+    deposition rows (`fd`)."""
 
     pack: torch.Tensor
     col: torch.Tensor
     rows: tuple
     fn: bool
+    fc: bool = False
+    fd: bool = False
+
+    @property
+    def form(self) -> dict:
+        return {"fc": self.fc, "fn": self.fn, "fd": self.fd}
 
     @property
     def nlev(self) -> int:
@@ -280,16 +326,23 @@ class FoldedPack:
                                    col=self.col.to(device))
 
 
-def pack_rows(fn: bool, aer=()) -> tuple:
-    return PACK_ROWS + ((ZDQS_ROW,) if fn else ()) + tuple(aer)
+def pack_rows(fc: bool = False, fn: bool = True, fd: bool = False,
+              aer=()) -> tuple:
+    """The pack's rows in pallas_cloudsc._pack_rows_f's order: PACK_ROWS,
+    the curve rows (fc), ZDQS (fn), the deposition rows (fd), then `aer`."""
+    return PACK_ROWS + (CURVE_ROWS if fc else ()) \
+        + ((ZDQS_ROW,) if fn else ()) + (DEP_ROWS if fd else ()) + tuple(aer)
 
 
-def folded_rows(get, ptsphy, c=None, fn: bool = False) -> dict:
+def folded_rows(get, ptsphy, c=None, fc: bool = False, fn: bool = False,
+                fd: bool = False) -> dict:
     """The folded per-level rows (name -> array) from a raw-field accessor
     `get(NAME[, species])` returning fp64 file-width arrays — the fold is
     computed in fp64 and rounded once by the later working-precision cast
     (pallas_cloudsc._folded_rows; ref: cloudsc.F90:662-682, 1145,
-    1288-1289). `fn` adds the ZDQS row (physics/satfold.newton_zdqs)."""
+    1288-1289). With `c`, `fc` adds the saturation-curve rows, `fn` the
+    ZDQS row and `fd` the deposition rows of `c`'s IDEPICE
+    (physics/satfold)."""
     rows = {
         "pmf": get("PMFU") + get("PMFD"),
         "plu": get("PLU"),
@@ -310,12 +363,19 @@ def folded_rows(get, ptsphy, c=None, fn: bool = False) -> dict:
             for m in range(4)
         },
     }
-    if fn:
+    if fc or fn or fd:
         curves = satfold.curve_rows(c, rows["ztp1_in"], rows["pap"])
-        rows["zdqs"] = satfold.newton_zdqs(
-            c, rows["ztp1_in"], rows["pap"], rows["paph"], rows["pmf"],
-            rows["zhr"], rows["pvervel"], curves["zqsmix"],
-        )
+        if fc:
+            rows.update(curves)
+        if fn:
+            rows["zdqs"] = satfold.newton_zdqs(
+                c, rows["ztp1_in"], rows["pap"], rows["paph"], rows["pmf"],
+                rows["zhr"], rows["pvervel"], curves["zqsmix"],
+            )
+        if fd:
+            rows.update(satfold.dep_rows(
+                c, rows["ztp1_in"], rows["zqv_in"], rows["za_in"],
+                [rows[f"zqx{m}_in"] for m in range(4)], rows["pap"], curves))
     return rows
 
 
@@ -351,14 +411,15 @@ def pack_expand(rows, ncol, nlev_rows, dtype,
 
 def pack_inputs_folded(inp, params, config=None, dtype=torch.float32,
                        perm=None, fn: bool = True,
-                       column_order: str = "grouped") -> FoldedPack:
+                       column_order: str = "grouped", fc: bool = False,
+                       fd: bool = False) -> FoldedPack:
     """Folded pack on the host from an unexpanded `InputData`: fold in fp64
     at file width, expand to `inp.ngptot` columns in grouped order (source
     columns permuted by `perm` first, `data.expand.activity_perm`) or, with
     `column_order="cyclic"`, in the cyclic order of `data.expand`; cast
-    once. `fn` streams the ZDQS row (the main path, and the only layout the
-    CUDA kernel takes); without it the plain version runs the in-line
-    CUADJTQ. Returns host tensors."""
+    once. The form: `fn` streams the ZDQS row (the main path; without it the
+    kernel runs the in-line CUADJTQ), `fc` the saturation-curve rows, `fd`
+    the deposition rows. Returns host tensors."""
     if column_order not in ("grouped", "cyclic"):
         raise ValueError(f"column_order {column_order!r}: grouped or cyclic")
     grouped = column_order == "grouped"
@@ -376,15 +437,24 @@ def pack_inputs_folded(inp, params, config=None, dtype=torch.float32,
         a = f[name] if m is None else f[name][m]
         return _p(np.asarray(a, np.float64))
 
-    fr = folded_rows(get, float(inp.ptsphy), c=c, fn=fn)
-    names = pack_rows(fn, aer)
+    fr = folded_rows(get, float(inp.ptsphy), c=c, fc=fc, fn=fn, fd=fd)
+    names = pack_rows(fc, fn, fd, aer)
     rows = [fr[n] if n in fr else get(n.upper()) for n in names]
     col_rows = [get("PLSM"), get("LDCUM"), get("KTYPE"),
                 _p(np.asarray(f["PAPH"], np.float64)[nlev])]
     return FoldedPack(
         pack=pack_expand(rows, ncol, nlev + 1, dtype, grouped),
         col=pack_expand(col_rows, ncol, 1, dtype, grouped).reshape(4, ncol),
-        rows=names, fn=fn)
+        rows=names, fn=fn, fc=fc, fd=fd)
+
+
+def k1_bytes(p: FoldedPack) -> int:
+    """Modeled bytes K1 must move on pack `p`: the pack (every row of its
+    form) and col in, the three output buffers out, each once."""
+    return (p.pack.numel() + p.col.numel()
+            + p.nlev * len(OLEV_ROWS) * p.ncol
+            + (p.nlev + 1) * len(OHALF_ROWS) * p.ncol
+            + p.ncol) * p.pack.element_size()
 
 
 # ---------------------------------------------------------------------------
@@ -392,29 +462,33 @@ def pack_inputs_folded(inp, params, config=None, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def check_kernel_config(c) -> None:
-    """Raise ValueError for a SchemeConfig the CUDA kernel does not take:
-    `skip` tags, `dynamic_skips=False`, or a switch outside 1-2. Every one
-    of the 16 scheme versions, with any aerosol coupling, is taken."""
+    """Raise ValueError for a SchemeConfig the CUDA kernel does not take: a
+    switch outside 1-2 or a skip tag outside scheme.SKIP_TAGS. Every one of
+    the 16 scheme versions, with any aerosol coupling, any set of the skip
+    tags, `dynamic_skips` on or off and `s521_round_skip` on or off, is
+    taken (each a build of its own)."""
     cfg = (c.IWARMRAIN, c.IEVAPRAIN, c.IEVAPSNOW, c.IDEPICE)
-    if any(v not in (1, 2) for v in cfg) or c.skip or not c.dynamic_skips:
+    if any(v not in (1, 2) for v in cfg):
         raise ValueError(
             f"the CUDA kernel implements the SchemeConfig versions (1|2, "
-            f"1|2, 1|2, 1|2) with dynamic skips only; got {cfg}, skip="
-            f"{sorted(c.skip)}, dynamic_skips={c.dynamic_skips}")
+            f"1|2, 1|2, 1|2); got {cfg}")
+    unknown = sorted(set(c.skip) - set(scheme.SKIP_TAGS))
+    if unknown:
+        raise ValueError(f"unknown skip tags {unknown}; the CUDA kernel "
+                         f"takes {scheme.SKIP_TAGS}")
 
 
 def check_kernel_args(p: FoldedPack, c) -> None:
     """Raise ValueError for what the CUDA kernel does not take: a
-    configuration `check_kernel_config` refuses, a pack without the
-    streamed ZDQS row or of another layout than the version's (its aerosol
-    rows included), a dtype other than fp32/fp64, a non-contiguous or
-    mis-shaped buffer, or a tensor that is not on a CUDA device."""
+    configuration `check_kernel_config` refuses, a pack whose rows are not
+    its form's `pack_rows` (the version's aerosol rows included), a dtype
+    other than fp32/fp64, a non-contiguous or mis-shaped buffer, or a
+    tensor that is not on a CUDA device. Every form (fc, fn, fd) is
+    taken."""
     check_kernel_config(c)
-    if not p.fn:
-        raise ValueError("the CUDA kernel takes the pack layout with the "
-                         "streamed ZDQS row (fn) only")
-    if tuple(p.rows) != pack_rows(True, aer_rows(c)):
-        raise ValueError(f"unknown pack layout {p.rows}")
+    if tuple(p.rows) != pack_rows(p.fc, p.fn, p.fd, aer_rows(c)):
+        raise ValueError(f"unknown pack layout {p.rows} for the form "
+                         f"fc={p.fc}, fn={p.fn}, fd={p.fd}")
     if p.pack.dtype not in (torch.float32, torch.float64) \
             or p.col.dtype != p.pack.dtype or c.dtype != p.pack.dtype:
         raise ValueError(f"pack {p.pack.dtype}, col {p.col.dtype} and "
@@ -449,8 +523,9 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
     `mode` "floor" or "init" runs the diagnostic body instead of the
     physics. A CUDA pack launches the kernel (or raises); a CPU pack runs
     the plain version. `lib` is a library from `build.load_library` (if
-    None, the build of `c`'s scheme version, `kernel_version(c)`). An input
-    that requires grad is refused on either device (`refuse_grad`)."""
+    None, the build of `c`'s configuration on `p`'s form,
+    `kernel_version(c, p.form)`). An input that requires grad is refused on
+    either device (`refuse_grad`)."""
     global LAUNCHES, FLOOR_LAUNCHES, INIT_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
@@ -465,7 +540,7 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
     if lib is None:
         from . import build
 
-        lib = build.load_library(version=kernel_version(c))
+        lib = build.load_library(version=kernel_version(c, p.form))
     if consts is None:
         consts = const_vector(c, p.pack.device)
     if consts.dtype != torch.float64 or consts.device != p.pack.device \
@@ -488,7 +563,7 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
         INIT_LAUNCHES += 1
     else:
         LAUNCHES += 1
-        VERSION_LAUNCHES[kernel_version(c)] += 1
+        VERSION_LAUNCHES[kernel_version(c, p.form)] += 1
     if rc != 0:
         raise RuntimeError(f"cloudsc_fused ({mode}) launch failed: CUDA "
                            f"error {rc}")
@@ -528,7 +603,8 @@ def cloudsc_fused_plain(p: FoldedPack, c):
     pack, col = p.pack, p.col
     nlev, ncol = p.nlev, p.ncol
     ridx = {name: i for i, name in enumerate(p.rows)}
-    aer = [n for n in p.rows if n not in PACK_ROWS and n != ZDQS_ROW]
+    aer = [n for n in p.rows if n not in pack_rows(p.fc, p.fn, p.fd)]
+    curves = CURVE_ROWS if p.fc else ()
     ktop = c.NCLDTOP - 1
     zqtmst, ptsphy = c.zqtmst, c.ptsphy
     dev = pack.device
@@ -564,6 +640,7 @@ def cloudsc_fused_plain(p: FoldedPack, c):
                                      "pvervel", "zhr", "plude", "psnde",
                                      "psupsat", "pvfl", "pvfi", "pmf")}
         raw["zqx_cld_in"] = [P(k, f"zqx{m}_in") for m in range(4)]
+        raw.update({n: P(k, n) for n in curves})
         ini = scheme.level_init(raw, c)
         paph_k, paph_k1 = P(k, "paph"), P(k + 1, "paph")
         if k < ktop:
@@ -599,6 +676,8 @@ def cloudsc_fused_plain(p: FoldedPack, c):
                 x[name] = P(k, name)
             if p.fn:
                 x["zdqs"] = P(k, ZDQS_ROW)
+            if p.fd:
+                x.update({n: P(k, n) for n in DEP_ROWS})
             carry, ys = scheme.level_step(x, carry, c)
             plude_row, pcovptot_row = ys["plude"], ys["pcovptot"]
             tend_t_row, tend_q_row, tend_a_row = \
@@ -652,7 +731,8 @@ def cloudsc_init_plain(p: FoldedPack, c):
     elementwise, here over all levels at once) and ztp1 + zqsmix + zfokoop +
     zli in every output row of level k."""
     raw = {n: p.pack[:, p.row(n)] for n in ("ztp1_in", "zqv_in", "za_in",
-                                             "pap")}
+                                             "pap")
+           + (CURVE_ROWS if p.fc else ())}
     raw["zqx_cld_in"] = [p.pack[:, p.row(f"zqx{m}_in")] for m in range(4)]
     ini = scheme.level_init(raw, c)
     v = ini["ztp1"] + ini["zqsmix"] + ini["zfokoop"] + ini["zli"]

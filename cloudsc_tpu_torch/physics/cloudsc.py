@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import scheme
+from . import satfold, scheme
 from .scheme import IL, II, IR, IS, NCLV
 
 
@@ -92,17 +92,15 @@ def make_inputs(inp, dtype=torch.float64, column_order: str = "cyclic",
     `fold=True` gives the folded contract: the section-1 state accumulation
     and the always-summed pairs computed in fp64 at file width, then cast
     (ztp1_in, zqv_in, za_in, zqx_cld_in, pmf, zhr in place of pt, pq, pa,
-    pclv, the tendencies and the pairs); `fold_newton` (needs `params`)
-    adds the 3.4b Newton's ZDQS row (physics/satfold). The JAX package's
-    default-off folded saturation-curve and deposition rows (`fold_curves`,
-    `fold_dep`) are not ported."""
+    pclv, the tendencies and the pairs). With `params`, and computed in
+    fp64 at file width like the rest (physics/satfold): `fold_curves` adds
+    the nine saturation-curve rows, `fold_newton` the 3.4b Newton's ZDQS
+    row, `fold_dep` the two deposition rows of the formula `config`'s
+    IDEPICE selects."""
     from ..data.expand import expand_field
 
     if column_perm is not None and column_order != "grouped":
         raise ValueError("column_perm requires column_order='grouped'")
-    if fold_curves or fold_dep:
-        raise NotImplementedError("the folded saturation-curve and "
-                                  "deposition rows are not ported")
     f = inp.fields
     ngptot = inp.ngptot
     np_dtype = _NP_DTYPES[dtype]
@@ -138,18 +136,27 @@ def make_inputs(inp, dtype=torch.float64, column_order: str = "cyclic",
         "pmf": cast(f64("PMFU") + f64("PMFD")),
         "zhr": cast(f64("PHRSW") + f64("PHRLW")),
     }
-    if fold_newton:
-        from . import satfold
-
+    if fold_curves or fold_newton or fold_dep:
         if params is None:
-            raise ValueError("fold_newton needs params")
+            raise ValueError("fold_curves/fold_newton/fold_dep need params")
+        # the config matters for fold_dep alone (IDEPICE)
         c64 = scheme.derived_consts(params, dt64, torch.float64, config)
         curves = satfold.curve_rows(c64, ztp1_64, f64("PAP"))
-        folded["zdqs"] = cast(satfold.newton_zdqs(
-            c64, ztp1_64, f64("PAP"), f64("PAPH"),
-            f64("PMFU") + f64("PMFD"), f64("PHRSW") + f64("PHRLW"),
-            f64("PVERVEL"), curves["zqsmix"],
-        ))
+        if fold_curves:
+            folded.update({n: cast(r) for n, r in curves.items()})
+        if fold_newton:
+            folded["zdqs"] = cast(satfold.newton_zdqs(
+                c64, ztp1_64, f64("PAP"), f64("PAPH"),
+                f64("PMFU") + f64("PMFD"), f64("PHRSW") + f64("PHRLW"),
+                f64("PVERVEL"), curves["zqsmix"],
+            ))
+        if fold_dep:
+            dep = satfold.dep_rows(
+                c64, ztp1_64, f64("PQ") + dt64 * f64("TENDENCY_TMP_Q"),
+                f64("PA") + dt64 * f64("TENDENCY_TMP_A"),
+                f64("PCLV")[:4] + dt64 * f64("TENDENCY_TMP_CLD")[:4],
+                f64("PAP"), curves)
+            folded.update({n: cast(r) for n, r in dep.items()})
     return {**folded, **{k: cast(n) for k, n in _FOLDED_REST + _AEROSOL},
             **flags}
 
@@ -188,6 +195,9 @@ def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
         raw = dict(ztp1_in=pt, zqv_in=fields["zqv_in"], za_in=fields["za_in"],
                    zqx_cld_in=[fields["zqx_cld_in"][m] for m in range(4)],
                    pap=fields["pap"])
+        if "zqsmix" in fields:
+            # folded saturation curves: level_init reads the rows
+            raw.update({n: fields[n] for n in satfold.CURVE_ROWS})
     else:
         raw = dict(
             pt=pt, pq=fields["pq"], pa=fields["pa"], pap=fields["pap"],
@@ -218,8 +228,9 @@ def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
                            ("pccn", c.LAERLIQAUTOLSP or c.LAERLIQCOLL)) if on]
     for n in aer:
         rows[n] = fields[n]
-    if "zdqs" in fields:
-        rows["zdqs"] = fields["zdqs"]
+    for n in ("zdqs",) + satfold.DEP_ROWS:
+        if n in fields:
+            rows[n] = fields[n]
     paph_surf = fields["paph"][nlev]
     land = fields["plsm"] > 0.5
     ktop = c.NCLDTOP - 1           # 0-based first level of the loop

@@ -11,8 +11,10 @@ packages round alike:
     `schain`), and the LU solve skips them;
   * the 5.2.1 run-out order is the lexicographic (ratio, species) rank with
     the first-minimum tie rule;
-  * the dynamic fast paths (`inert_skip`) are plain Python branches on
-    ``mask.any()``, value-exact like the JAX ``lax.cond``.
+  * the dynamic fast paths (`inert_skip`, the 5.2.1 no-overshoot case and
+    the optional per-round skip) are plain Python branches on
+    ``mask.any()``, value-exact like the JAX ``lax.cond``; `probe_hook`
+    sees their guards (bench/activity_probe.py).
 
 This is the body of the plain version of the fused CUDA kernel
 (`kernels/cuda_cloudsc.py`): on a CPU tensor the kernel wrapper runs it level
@@ -21,6 +23,7 @@ by level, and on the card it is what the kernel is held against.
 
 from __future__ import annotations
 
+import os
 from types import SimpleNamespace
 
 import torch
@@ -126,13 +129,24 @@ def sdiv(a, b):
     return rdiv(a, b) if torch.is_tensor(b) else a / b
 
 
-def inert_skip(mask, active_fn, ops, force=False):
+# Diagnostic probe: a callable(tag, mask) that records the per-element guard
+# masks of the dynamic fast paths and of the sections' activity
+# (bench/activity_probe.py); None on every other path. The engine branches
+# on the host, so a nested guard is recorded only on the levels where its
+# enclosing branch runs.
+probe_hook = None
+
+
+def inert_skip(mask, active_fn, ops, force=False, tag=None):
     """Dynamic fast path for a region that is inert wherever `mask` is False:
     when it is False everywhere in the batch, the region's increments are
     exactly zero and its updates the identity, so returning `ops` unchanged
     is value-exact (the JAX `lax.cond` contract: every value `active_fn`
     returns has a seed in `ops` equal to its inert value). `force` runs the
-    active branch regardless — the oracle the inertness tests diff against."""
+    active branch regardless — the oracle the inertness tests diff against.
+    `tag` names the guard to `probe_hook`."""
+    if probe_hook is not None:
+        probe_hook(tag, mask)
     if force or bool(mask.any()):
         return active_fn(ops)
     return ops
@@ -145,19 +159,30 @@ class SchemeConfig(SimpleNamespace):
       ievaprain: 1 Sundqvist      | 2 Abel-Boutle-2013
       ievapsnow: 1 Sundqvist      | 2 PSD-based
       idepice:   1 Rotstayn-2001  | 2 ice-PSD-based
-    skip: diagnostics only — tags of physics sections to drop. Any entry
-    makes the physics wrong by construction; nothing on the main path sets
-    it. dynamic_skips=False always runs the skippable regions (the oracle
-    for the value-exactness of the skips). The JAX package's default-off
-    per-round 5.2.1 skip (`s521_round_skip`) is not ported.
+    skip: diagnostics only — tags of physics sections to drop (SKIP_TAGS;
+    bench/kernel_lab.py's section attribution). Any entry makes the physics
+    wrong by construction; nothing on the main path sets it.
+    dynamic_skips=False always runs the skippable regions (the oracle for
+    the value-exactness of the skips). s521_round_skip adds a value-exact
+    skip of each 5.2.1 rescale round no column can need; None reads
+    CLOUDSC_S521_ROUND_SKIP (default 0), as the JAX package does.
     """
 
     def __init__(self, iwarmrain=2, ievaprain=2, ievapsnow=1, idepice=1,
-                 skip=(), dynamic_skips=True):
+                 skip=(), dynamic_skips=True, s521_round_skip=None):
+        if s521_round_skip is None:
+            s521_round_skip = (
+                os.environ.get("CLOUDSC_S521_ROUND_SKIP", "0") == "1")
         super().__init__(iwarmrain=int(iwarmrain), ievaprain=int(ievaprain),
                          ievapsnow=int(ievapsnow), idepice=int(idepice),
                          skip=tuple(skip),
-                         dynamic_skips=bool(dynamic_skips))
+                         dynamic_skips=bool(dynamic_skips),
+                         s521_round_skip=bool(s521_round_skip))
+
+
+# the section tags `SchemeConfig.skip` takes, in the scheme's order
+SKIP_TAGS = ("s31", "s33", "s34e", "s34c", "s37", "s43a", "s43b", "s43c",
+             "s44a", "s44b", "s44c", "s45r", "s45s", "s46", "s521", "s522")
 
 
 def derived_consts(params, ptsphy, dtype,
@@ -198,6 +223,7 @@ def derived_consts(params, ptsphy, dtype,
     c.dtype = dtype
     c.skip = frozenset(cfg.skip)
     c.dynamic_skips = cfg.dynamic_skips
+    c.s521_round_skip = cfg.s521_round_skip
     return c
 
 
@@ -260,23 +286,33 @@ def level_init(raw: dict, c) -> dict:
     # FOEEWM/FOEELIQ/FOEEICE/FOKOOP as in the JAX module
     pap = raw["pap"]
     zfoealfa = foealfa(ztp1, thf)
-    exp_liq = torch.exp(thf.r3les * (ztp1 - cst.rtt) / (ztp1 - thf.r4les))
-    exp_ice = torch.exp(thf.r3ies * (ztp1 - cst.rtt) / (ztp1 - thf.r4ies))
-    zfoeeliq = thf.r2es * exp_liq
-    zfoeeice = thf.r2es * exp_ice
-    zfoeewmt = mn(
-        thf.r2es * (zfoealfa * exp_liq + (1.0 - zfoealfa) * exp_ice)
-        / pap, 0.5
-    )
-    zqsmix = zfoeewmt / (1.0 - RETV * zfoeewmt)
-    zdelta = foedelta(ztp1, cst)
-    zfoeew = mn((zdelta * zfoeeliq + (1.0 - zdelta) * zfoeeice) / pap, 0.5)
-    zfoeew = mn(0.5, zfoeew)
-    zqsice = zfoeew / (1.0 - RETV * zfoeew)
-    zfoeeliqt = mn(zfoeeliq / pap, 0.5)
-    zqsliq = zfoeeliqt / (1.0 - RETV * zfoeeliqt)
-    # Koop supersaturation limit (ref: fccld.func.h:27), reused in 3.1/3.7
-    zfokoop = mn(thf.rkoop1 - thf.rkoop2 * ztp1, zfoeeliq / zfoeeice)
+    if "zqsmix" in raw:
+        # folded saturation curves (CLOUDSC_FOLD_CURVES): the block below,
+        # computed at load time in fp64 (physics/satfold.curve_rows)
+        zfoeeliq, zfoeeice = raw["zfoeeliq"], raw["zfoeeice"]
+        zfoeewmt, zqsmix = raw["zfoeewmt"], raw["zqsmix"]
+        zfoeew, zqsice = raw["zfoeew"], raw["zqsice"]
+        zfoeeliqt, zqsliq = raw["zfoeeliqt"], raw["zqsliq"]
+        zfokoop = raw["zfokoop"]
+    else:
+        exp_liq = torch.exp(thf.r3les * (ztp1 - cst.rtt) / (ztp1 - thf.r4les))
+        exp_ice = torch.exp(thf.r3ies * (ztp1 - cst.rtt) / (ztp1 - thf.r4ies))
+        zfoeeliq = thf.r2es * exp_liq
+        zfoeeice = thf.r2es * exp_ice
+        zfoeewmt = mn(
+            thf.r2es * (zfoealfa * exp_liq + (1.0 - zfoealfa) * exp_ice)
+            / pap, 0.5
+        )
+        zqsmix = zfoeewmt / (1.0 - RETV * zfoeewmt)
+        zdelta = foedelta(ztp1, cst)
+        zfoeew = mn((zdelta * zfoeeliq + (1.0 - zdelta) * zfoeeice) / pap,
+                    0.5)
+        zfoeew = mn(0.5, zfoeew)
+        zqsice = zfoeew / (1.0 - RETV * zfoeew)
+        zfoeeliqt = mn(zfoeeliq / pap, 0.5)
+        zqsliq = zfoeeliqt / (1.0 - RETV * zfoeeliqt)
+        # Koop supersaturation limit (ref: fccld.func.h:27), reused in 3.1/3.7
+        zfokoop = mn(thf.rkoop1 - thf.rkoop2 * ztp1, zfoeeliq / zfoeeice)
 
     # cloud fraction in [0,1]; liquid/ice split (ref: 786-808)
     za = mx(0.0, mn(1.0, za))
@@ -401,6 +437,8 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
 
     has_sup = zsupsat > ZEPSEC
     warm = ztp1 > e.rthomo
+    if probe_hook is not None:
+        probe_hook("s31", has_sup | (x["psupsat"] > ZEPSEC))
     if "s31" not in c.skip:
         for m, w in ((IL, warm), (II, ~warm)):
             amt = madd(has_sup & w, zsupsat)
@@ -433,6 +471,10 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
     solqa[IS][IS] = sadd(
         solqa[IS][IS], madd(not_last & ldcum, x["psnde"] * zdtgdp)
     )
+    if probe_hook is not None:
+        probe_hook(
+            "s32", lcond | (not_last & ldcum & (x["psnde"] * zdtgdp != 0.0))
+        )
 
     # ---- 3.3 subsidence source + in-layer evaporation (ref: 1143-1194)
     # x["pmf"] = PMFU + PMFD, only ever consumed summed (ref: 1145, 1203, 1288)
@@ -460,6 +502,8 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
 
     # subsidence sink to layer below (ref: 1201-1217)
     zmfdn = madd(not_last, mx(0.0, x["pmf_next"] * zdtgdp))
+    if probe_hook is not None:
+        probe_hook("s33", (not_first & (zmf > 0.0)) | (zmfdn > 0.0))
     solab = solab + zmfdn
     solqb[IL][IL] = sadd(solqb[IL][IL], zmfdn)
     solqb[II][II] = sadd(solqb[II][II], zmfdn)
@@ -479,6 +523,8 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
     zleros = mn(zleros, zevaplimmix)
     zleros = mn(zleros, x["zli"])
     zaeros = zleros / torch.where(has_cld, zlicld, 1.0)
+    if probe_hook is not None:
+        probe_hook("s34e", has_cld)
     if "s34e" not in c.skip:
         solac = solac - madd(has_cld, zaeros)
         for m, frac in ((IL, x["zliqfrac"]), (II, x["zicefrac"])):
@@ -633,6 +679,10 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
         for _nn in range(NCLV):
             if solqa[_mm][_nn] is not None:
                 region_m = region_m | (solqa[_mm][_nn] != 0.0)
+    if probe_hook is not None:
+        # the folded solve's own activity, recorded outside the branch (see
+        # the JAX module)
+        probe_hook("solver", region_m | (zmfdn > 0.0))
     _blk_a = [
         (IS, IL), (IR, IL), (IL, IS), (IL, IR),   # 4.3b warm rain (KK2000)
         (IR, II), (II, IR), (IR, IS), (IS, IR),   # 4.4a melt + 4.4b freeze
@@ -656,45 +706,51 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
         zcovptot = carry["zcovptot"]
 
         dep_m = (ztp1 < RTT) & (zqxfg[IL] > e.rlmin)
-        zvpice = div(x["zfoeeice"] * RV, RD)
-        zvpliq = zvpice * zfokoop
-        zicenuclei = 1000.0 * torch.exp(
-            12.96 * (zvpliq - zvpice) / zvpliq - 0.639
-        )
-        zinfactor = mn(div(zicenuclei, 15000.0), 1.0)
-        if c.IDEPICE == 1:  # Rotstayn 2001 monodisperse (ref: 1519-1601)
-            zadd = RLSTT * (rdiv(RLSTT, RV * ztp1) - 1.0) / (2.4e-2 * ztp1)
-            zbdd = RV * ztp1 * pap / (2.21 * zvpice)
-            zcvds = (
-                7.8
-                * (zicenuclei / zrho) ** 0.666
-                * (zvpliq - zvpice)
-                / (8.87 * (zadd + zbdd) * zvpice)
+        if "zdep0" in x:
+            # folded deposition (CLOUDSC_FOLD_DEP): the chain below up to the
+            # raw amount, computed at load time in fp64 (satfold.dep_rows);
+            # only the carry-dependent tail remains
+            zinfactor, zdepos = x["zinfac"], x["zdep0"]
+        else:
+            zvpice = div(x["zfoeeice"] * RV, RD)
+            zvpliq = zvpice * zfokoop
+            zicenuclei = 1000.0 * torch.exp(
+                12.96 * (zvpliq - zvpice) / zvpliq - 0.639
             )
-            zice0 = mx(_zicecld30, zicenuclei * e.riceinit / zrho)
-            zinew_b = 0.666 * zcvds * ptsphy + zice0 ** 0.666
-            zinew = zinew_b * torch.sqrt(zinew_b)      # == zinew_b**1.5
-            zdepos = mx(za * (zinew - zice0), 0.0)
-        else:  # IDEPICE == 2: ice-PSD deposition (ref: 1608-1689)
-            zice0 = mx(_zicecld30, zicenuclei * e.riceinit / zrho)
-            zaplusb = (
-                e.rcl_apb1 * zvpice - e.rcl_apb2 * zvpice * ztp1
-                + pap * e.rcl_apb3 * (ztp1 * ztp1 * ztp1)
-            )
-            zcorrfac = torch.sqrt(1.0 / zrho)
-            ztq = div(ztp1, 273.0)
-            zcorrfac2 = ztq * torch.sqrt(ztq) * rdiv(393.0, ztp1 + 120.0)
-            zpr02 = zrho * zice0 * e.rcl_const1i  # ZTCG = ZFACX1I = 1
-            zterm1 = (
-                (zvpliq - zvpice) * ztp1 ** 2 * zvpice * zcorrfac2
-                * e.rcl_const2i / (zrho * zaplusb * zvpice)
-            )
-            zterm2 = (
-                0.65 * e.rcl_const6i * zpr02 ** e.rcl_const4i
-                + e.rcl_const3i * torch.sqrt(zcorrfac) * torch.sqrt(zrho)
-                * zpr02 ** e.rcl_const5i / torch.sqrt(zcorrfac2)
-            )
-            zdepos = mx(za * zterm1 * zterm2 * ptsphy, 0.0)
+            zinfactor = mn(div(zicenuclei, 15000.0), 1.0)
+            if c.IDEPICE == 1:  # Rotstayn 2001 monodisperse (ref: 1519-1601)
+                zadd = RLSTT * (rdiv(RLSTT, RV * ztp1) - 1.0) / (2.4e-2 * ztp1)
+                zbdd = RV * ztp1 * pap / (2.21 * zvpice)
+                zcvds = (
+                    7.8
+                    * (zicenuclei / zrho) ** 0.666
+                    * (zvpliq - zvpice)
+                    / (8.87 * (zadd + zbdd) * zvpice)
+                )
+                zice0 = mx(_zicecld30, zicenuclei * e.riceinit / zrho)
+                zinew_b = 0.666 * zcvds * ptsphy + zice0 ** 0.666
+                zinew = zinew_b * torch.sqrt(zinew_b)      # == zinew_b**1.5
+                zdepos = mx(za * (zinew - zice0), 0.0)
+            else:  # IDEPICE == 2: ice-PSD deposition (ref: 1608-1689)
+                zice0 = mx(_zicecld30, zicenuclei * e.riceinit / zrho)
+                zaplusb = (
+                    e.rcl_apb1 * zvpice - e.rcl_apb2 * zvpice * ztp1
+                    + pap * e.rcl_apb3 * (ztp1 * ztp1 * ztp1)
+                )
+                zcorrfac = torch.sqrt(1.0 / zrho)
+                ztq = div(ztp1, 273.0)
+                zcorrfac2 = ztq * torch.sqrt(ztq) * rdiv(393.0, ztp1 + 120.0)
+                zpr02 = zrho * zice0 * e.rcl_const1i  # ZTCG = ZFACX1I = 1
+                zterm1 = (
+                    (zvpliq - zvpice) * ztp1 ** 2 * zvpice * zcorrfac2
+                    * e.rcl_const2i / (zrho * zaplusb * zvpice)
+                )
+                zterm2 = (
+                    0.65 * e.rcl_const6i * zpr02 ** e.rcl_const4i
+                    + e.rcl_const3i * torch.sqrt(zcorrfac) * torch.sqrt(zrho)
+                    * zpr02 ** e.rcl_const5i / torch.sqrt(zcorrfac2)
+                )
+                zdepos = mx(za * zterm1 * zterm2 * ptsphy, 0.0)
         ztopred = mn(
             zinfactor
             + (1.0 - zinfactor)
@@ -1014,6 +1070,7 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
                 zqxfg[IR],
             ),
             force=force_on,
+            tag="rain",
         )
 
         # 4.5 snow sublimation (ref: 2289-2419)
@@ -1186,7 +1243,32 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
             ratio_fin = [
                 torch.where(rank[m] == 0, zratio[m], one) for m in range(NCLV)
             ]
+            # per-round skip (s521_round_skip; see the JAX module): a species
+            # whose negative entries alone stay within zmax can never
+            # overshoot, whatever factors the earlier rounds apply, and its
+            # round is then the identity (ratio zmax / zmax == 1); a round
+            # whose species carries that guarantee in every column is skipped
+            never_over = None
+            if c.s521_round_skip:
+                never_over = []
+                for m in range(NCLV):
+                    npart = None
+                    for n in range(NCLV):
+                        if sq[m][n] is not None:
+                            npart = sadd(npart, madd(sq[m][n] < 0.0, -sq[m][n]))
+                    never_over.append(
+                        torch.ones_like(ztp1, dtype=torch.bool)
+                        if npart is None else npart <= zmax[m])
             for round_i in range(1, NCLV):
+                if c.s521_round_skip:
+                    unsafe = None
+                    for m in range(NCLV):
+                        u = (rank[m] == round_i) & ~never_over[m]
+                        unsafe = u if unsafe is None else unsafe | u
+                    if probe_hook is not None:
+                        probe_hook(f"s521r{round_i}", unsafe)
+                    if not (force_on or bool(unsafe.any())):
+                        continue
                 sel = [rank[m] == round_i for m in range(NCLV)]
                 num = None
                 den = None
@@ -1216,6 +1298,12 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
 
         if "s521" not in c.skip:
             vals0 = tuple(solqa[m][n] for m, n in sq_idx)
+            if probe_hook is not None:
+                over = None
+                for m in range(NCLV):
+                    o = zsinksum[m] > zmax[m]
+                    over = o if over is None else over | o
+                probe_hook("s521", over)
             if force_on or not _no_overshoot():
                 scaled = _rescale_sinks(vals0)
             else:
@@ -1310,7 +1398,8 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
         carry["zcovptot"],
         zero,
     )
-    _out = inert_skip(region_m, _precip_active, _ops, force=force_on)
+    _out = inert_skip(region_m, _precip_active, _ops, force=force_on,
+                      tag="precip")
     zqxn = list(_out[:NCLV])
     pfplsx_next = list(_out[NCLV:2 * NCLV])
     tend_t, tend_q, zcovptot, zcovpmax = _out[2 * NCLV:]

@@ -7,10 +7,19 @@ variants it reports the step time, the host<->device transfers and, as
 src/cloudsc_cuda/cloudsc/cloudsc_driver.cu, README.md:311-318). Two engines
 (`backend`):
 
-  * "auto" / "cuda": the fused kernel on grouped, activity-sorted columns
-    (folded pack with the streamed ZDQS row, folded-out flux rows), the
-    build of the configuration's own scheme version. "cuda" needs the card;
-    "auto" runs the kernel's plain PyTorch version with `device="cpu"`.
+  * "auto" / "cuda": the fused kernel on the folded pack (folded-out flux
+    rows), the build of the configuration's own version and the pack's
+    form. "cuda" needs the card; "auto" runs the kernel's plain PyTorch
+    version with `device="cpu"`. The JAX driver's switches choose the pack:
+    its form from CLOUDSC_FOLD_NEWTON (default 1: the streamed ZDQS row;
+    0: the kernel's in-line CUADJTQ), CLOUDSC_FOLD_CURVES and
+    CLOUDSC_FOLD_DEP (default 0: the saturation curves and the deposition
+    chain computed in the kernel), and its column layout from
+    CLOUDSC_GROUP_COLUMNS (default 1: each snapshot column's copies
+    together; 0: the cyclic order of the reference's expansion) and
+    CLOUDSC_GROUP_SORT (default 1: grouped columns in activity order; 0:
+    in source order). The outputs come back in the canonical (cyclic)
+    order whatever the layout.
   * "scan": the eager engine (`physics.cloudsc`) on the plain field dict in
     cyclic column order, padded to a multiple of NPROMA, on the driver's
     device.
@@ -36,7 +45,9 @@ through NVML) into `Timings.energy_line`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
+import os
 import time
 
 import numpy as np
@@ -44,8 +55,8 @@ import torch
 
 from ..data.expand import activity_perm, group_inverse
 from ..kernels.cuda_cloudsc import FoldedPack, FusedStep, assemble, \
-    check_kernel_config, cloudsc_fused, const_vector, pack_inputs_folded, \
-    refuse_grad
+    check_kernel_config, cloudsc_fused, const_vector, fold_flags, \
+    pack_inputs_folded, refuse_grad
 from ..physics.cloudsc import CloudscOutputs, cloudsc, make_inputs
 from . import dist
 from .pmon import EnergySampler
@@ -105,6 +116,12 @@ class CloudscDriver:
                                  f"configuration (backend='scan', "
                                  f"--kernel scan)") from None
         self._consts = {}
+        # the pack's form and column layout (the JAX driver's switches,
+        # read once here)
+        self.form = fold_flags()
+        self.grouped = os.environ.get("CLOUDSC_GROUP_COLUMNS", "1") != "0"
+        self.group_sort = self.grouped and \
+            os.environ.get("CLOUDSC_GROUP_SORT", "1") != "0"
         self._group_perm = None
         # the payload's column shares, [(start, stop)] (`shard`), and the
         # last run's outputs', [(device, (start, stop))] in canonical order
@@ -117,12 +134,13 @@ class CloudscDriver:
 
     def prepare(self, inp):
         """InputData -> what one step consumes, on the host, before the cut
-        into shares. The kernel: the folded pack in activity-sorted grouped
-        column order (data.expand.activity_perm, dealt over the mesh's
-        shares; the identity layout when the snapshot is at least as wide
-        as the run). The scan engine: the plain field dict in cyclic order,
-        zero-padded to a multiple of NPROMA columns (and of the mesh's
-        size; the padding is cut from the outputs)."""
+        into shares. The kernel: the folded pack of the driver's form in
+        its column layout: by default grouped in activity order
+        (data.expand.activity_perm, dealt over the mesh's shares), grouped
+        in source order, or cyclic (the identity layout when the snapshot
+        is at least as wide as the run). The scan engine: the plain field
+        dict in cyclic order, zero-padded to a multiple of NPROMA columns
+        (and of the mesh's size; the padding is cut from the outputs)."""
         if self.backend == "scan":
             fields = make_inputs(inp, self.dtype)
             mult = math.lcm(self.nproma, self.ndevices)
@@ -133,13 +151,16 @@ class CloudscDriver:
             return fields
         klon = int(np.asarray(inp.fields["PT"]).shape[-1])
         self._group_perm = None
-        if klon < inp.ngptot:
+        if klon < inp.ngptot and self.group_sort:
             self._group_perm = activity_perm(
                 inp.fields["PCLV"], inp.fields["TENDENCY_TMP_CLD"],
                 inp.ptsphy, self.params.ydecldp.rlmin, nshards=self.ndevices,
             )
-        return pack_inputs_folded(inp, self.params, self.scheme_config,
-                                  self.dtype, self._group_perm)
+        return pack_inputs_folded(
+            inp, self.params, self.scheme_config, self.dtype,
+            self._group_perm,
+            column_order="grouped" if self.grouped else "cyclic",
+            **self.form)
 
     def shard(self, host) -> list:
         """The prepared host payload -> one payload a device, each its own
@@ -155,25 +176,25 @@ class CloudscDriver:
                 if self.ndevices == 1:
                     out.append(host.to(dev))
                     continue
-                out.append(FoldedPack(
-                    pack=host.pack[..., a:b].to(dev).contiguous(),
-                    col=host.col[..., a:b].to(dev).contiguous(),
-                    rows=host.rows, fn=host.fn))
+                out.append(dataclasses.replace(
+                    host, pack=host.pack[..., a:b].to(dev).contiguous(),
+                    col=host.col[..., a:b].to(dev).contiguous()))
             else:
                 out.append({k: v[..., a:b].to(dev).contiguous()
                             for k, v in host.items()})
         return out
 
     def ungroup(self, outs: list, inp) -> list:
-        """The grouped layout's shards -> the canonical (cyclic) order's
-        shares, `dist.split_columns(ngptot, ndevices)`, each on its device:
-        canonical column j takes its source's first copy from whichever
-        shard holds it. Copies of a snapshot column are bitwise-identical
-        through the scheme, so this reconstructs the cyclic-layout outputs
-        exactly."""
+        """The layout's shards -> the canonical (cyclic) order's shares,
+        `dist.split_columns(ngptot, ndevices)`, each on its device: in the
+        grouped layouts canonical column j takes its source's first copy
+        from whichever shard holds it. Copies of a snapshot column are
+        bitwise-identical through the scheme, so this reconstructs the
+        cyclic-layout outputs exactly. The cyclic layout is the canonical
+        order already."""
         ncol = inp.ngptot
         klon = int(np.asarray(inp.fields["PT"]).shape[-1])
-        if klon >= ncol:
+        if klon >= ncol or not self.grouped:
             if self.ndevices == 1:
                 return outs
             inv = np.arange(ncol, dtype=np.int64)

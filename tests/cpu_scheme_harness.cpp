@@ -2,9 +2,9 @@
 // (csrc/cloudsc_fused.cu) with direct loads in place of the shared-memory
 // ring, one column after another, in double. tests/test_torch_kernel.py
 // builds it with g++ -ffp-contract=off, a stub cuda_runtime.h and the
-// scheme version's CLOUDSC_* macros, and holds its outputs to the plain
-// version's, so the CUDA header's arithmetic and branches are checked on a
-// host without a card.
+// kernel version's CLOUDSC_* macros (scheme version, form, skips), and holds
+// its outputs to the plain version's, so the CUDA header's arithmetic and
+// branches are checked on a host without a card.
 //
 //   harness NLEV NCOL NROWS DIR   reads DIR/{pack,col,consts}.bin (float64)
 //                                 and writes DIR/out.bin: o_lev, o_half,
@@ -64,9 +64,11 @@ static void column(const T* pack, const T* col, const T* K, T* o_lev,
     for (int m = 0; m < 4; ++m) zqx_in[m] = P(k, R_ZQX0_IN + m);
     const T pap = P(k, R_PAP), plude_in = P(k, R_PLUDE);
     const T paph_k = P(k, R_PAPH), paph_k1 = P(k + 1, R_PAPH);
+    T curves[NCURVES];
+    curve_rows(P, k, curves);
     Init<T> in;
     level_init(K, P(k, R_ZTP1_IN), P(k, R_ZQV_IN), P(k, R_ZA_IN), zqx_in, pap,
-               in);
+               curves, in);
     T plude_row = plude_in, pcovptot_row = Z, tend_t_row = in.tend_t_pre,
       tend_q_row = in.tend_q_pre, tend_a_row = Z;
     T zqxn_eff[NCLV];
@@ -80,26 +82,8 @@ static void column(const T* pack, const T* col, const T* K, T* o_lev,
       x.paph = paph_k;
       x.paph_next = paph_k1;
       x.paph_surf = paph_surf;
-      x.pmf = P(k, R_PMF);
-      x.pmf_next = P(k + 1, R_PMF);
-      x.plu_next = P(k + 1, R_PLU);
-      x.pvervel = P(k, R_PVERVEL);
-      x.zhr = P(k, R_ZHR);
       x.plude_in = plude_in;
-      x.psnde = P(k, R_PSNDE);
-      x.psupsat = P(k, R_PSUPSAT);
-      x.zdqs = P(k, R_ZDQS);
-#if CLOUDSC_LAERICESED
-      x.pre_ice = P(k, R_PRE_ICE);
-#endif
-#if CLOUDSC_LAERICEAUTO
-      x.picrit_aer = P(k, R_PICRIT_AER);
-      x.pnice = P(k, R_PNICE);
-#endif
-#if CLOUDSC_AER_LIQ
-      x.plcrit_aer = P(k, R_PLCRIT_AER);
-      x.pccn = P(k, R_PCCN);
-#endif
+      level_rows(P, k, x);
       x.land = plsm > T(0.5);
       x.ldcum = ldcum;
       x.ktype = ktype;

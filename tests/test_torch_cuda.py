@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version on
 the same inputs, their launch counts (K1's three bodies, the overlap probe,
-the copy probe), K1's occupancy, each scheme version's build of K1, and
-the validation norms reduced on the card against the host's. Every test
+the copy probe), K1's occupancy, each scheme version's and each form's
+build of K1, the column layouts after the ungroup, and the validation
+norms reduced on the card against the host's. Every test
 needs a CUDA device and skips without one (marker `cuda`). The module imports no JAX, so that it
 also runs on a GPU host without it, where the repo's conftest (which
 imports JAX) is left out:
@@ -179,9 +180,10 @@ def test_cuda_pack_refuses_non_default_config(snapshot, cuda):
     assert cc.LAUNCHES == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    # every section tag is a build of its own; a tag no build knows is not
     skip = tscheme.derived_consts(params, inp.ptsphy, torch.float32,
-                                  tscheme.SchemeConfig(skip=("s37",)))
-    with pytest.raises(ValueError, match="SchemeConfig"):
+                                  tscheme.SchemeConfig(skip=("s99",)))
+    with pytest.raises(ValueError, match="skip tags"):
         cc.cloudsc_fused(p, skip)
     assert cc.LAUNCHES == before + 1
 
@@ -560,3 +562,60 @@ def test_rank_reference_on_the_card(cuda):
     for k, v in tdata.load_reference(path, 50, 100, 1, 2).items():
         assert got[k].device.type == "cuda"
         np.testing.assert_array_equal(got[k].cpu().numpy(), v, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(synthetic.FORM_CASES))
+def test_form_build_bitwise_equals_plain(cuda, case, dtype):
+    """Each form's build of K1 equals its plain version bit for bit at a
+    ragged 16,387 columns (NaNs included), launches once as its own
+    version, and runs with at least one block an SM and its form's rows in
+    the ring."""
+    form, cfg = synthetic.FORM_CASES[case]
+    inp = tdata.load_input(tdata.default_input_path(), 16387)
+    params = Params.from_input(inp)
+    config = tscheme.SchemeConfig(**cfg)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype, config)
+    p = cc.pack_inputs_folded(inp, params, config, dtype=dtype,
+                              **form).to(cuda)
+    v = cc.kernel_version(c, p.form)
+    assert v != cc.DEFAULT_VERSION
+    cc.VERSION_LAUNCHES.clear()
+    got = cc.cloudsc_fused(p, c)
+    want = cc.cloudsc_fused_plain(p, c)
+    torch.cuda.synchronize()
+    assert dict(cc.VERSION_LAUNCHES) == {v: 1}
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
+        # a build that skips sections is wrong physics by construction (set
+        # B drops the implicit solve, which overflows fp32): bit for bit,
+        # NaNs included
+        assert cfg.get("skip") or bool(torch.isfinite(a).all()), name
+        assert torch.equal(a.view(ints), b.view(ints)), name
+    occ = cc.occupancy(dtype, build.load_library(version=v))
+    assert occ["blocks_per_sm"] >= 1
+    assert occ["smem_bytes"] == cc.RING.smem_bytes(p.pack.element_size(),
+                                                   len(p.rows))
+
+
+@pytest.mark.parametrize("env", [{"CLOUDSC_GROUP_COLUMNS": "0"},
+                                 {"CLOUDSC_GROUP_SORT": "0"}],
+                         ids=["cyclic", "grouped_unsorted"])
+def test_layouts_equal_sorted_main_path(cuda, env, monkeypatch):
+    """The cyclic and grouped-unsorted layouts, after the ungroup, equal
+    the sorted main path bit for bit at 16,387 columns (K1 has nothing
+    across columns)."""
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    inp = tdata.load_input(tdata.default_input_path(), 16387)
+    params = Params.from_input(inp)
+    for var in ("CLOUDSC_GROUP_COLUMNS", "CLOUDSC_GROUP_SORT"):
+        monkeypatch.delenv(var, raising=False)
+    base, _, _ = CloudscDriver(params, inp.ptsphy, device="cuda").run(
+        inp, fetch_outputs=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    out, _, _ = CloudscDriver(params, inp.ptsphy, device="cuda").run(
+        inp, fetch_outputs=False)
+    for name, a, b in zip(base._fields, out, base):
+        assert torch.equal(a, b), name

@@ -193,7 +193,10 @@ def test_driver_engines_refuse_clearly(params, input_100):
     card; an unknown backend raises."""
     from cloudsc_tpu_torch.physics.scheme import SchemeConfig
 
-    cfg = SchemeConfig(skip=("s37",))
+    # every section tag is a kernel build now; a tag no build knows is not
+    CloudscDriver(params, input_100.ptsphy, device="cpu",
+                  scheme_config=SchemeConfig(skip=("s37",)))
+    cfg = SchemeConfig(skip=("s99",))
     with pytest.raises(ValueError, match="--kernel scan"):
         CloudscDriver(params, input_100.ptsphy, device="cpu",
                       scheme_config=cfg)
@@ -382,3 +385,47 @@ def test_chip_smoke_fp64_bar(golden_outputs_fp64, cpu_fp64_100,
     worse = [dataclasses.replace(e, errsum=2 * e.errsum)
              if e.name == "PFSQLF" else e for e in jax_errs]
     assert list(chip_smoke.over_jax_reading(worse)) == ["PFSQLF"]
+
+
+@pytest.mark.parametrize("env", [{"CLOUDSC_GROUP_COLUMNS": "0"},
+                                 {"CLOUDSC_GROUP_SORT": "0"},
+                                 {"CLOUDSC_FOLD_NEWTON": "0"},
+                                 {"CLOUDSC_FOLD_CURVES": "1",
+                                  "CLOUDSC_FOLD_DEP": "1"}],
+                         ids=["cyclic", "grouped_unsorted", "fn_off",
+                              "fc_fd"])
+def test_driver_layout_and_form_switches(env, monkeypatch):
+    """The JAX driver's switches on the port's driver, 256 columns fp64 on
+    the CPU (a multiple of the vector width: no row tail, so a column's
+    arithmetic does not depend on its position). The layouts: the cyclic
+    pack and the grouped unsorted one, whose outputs after the ungroup are
+    the sorted default's bit for bit. The forms: the driver packs the
+    form's rows, and its outputs are within FP64_TOL of the default's."""
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+
+    for var in ("CLOUDSC_GROUP_COLUMNS", "CLOUDSC_GROUP_SORT",
+                "CLOUDSC_FOLD_NEWTON", "CLOUDSC_FOLD_CURVES",
+                "CLOUDSC_FOLD_DEP"):
+        monkeypatch.delenv(var, raising=False)
+    inp = tdata.load_input(tdata.default_input_path(), 256)
+    params = TParams.from_input(inp)
+    base = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                         device="cpu")
+    p0 = base.prepare(inp)
+    want, _, _ = base.run(inp)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                           device="cpu")
+    p = driver.prepare(inp)
+    got, _, _ = driver.run(inp)
+    form = cc.fold_flags()
+    assert p.form == form and p.rows == cc.pack_rows(**form)
+    if "CLOUDSC_GROUP_COLUMNS" in env or "CLOUDSC_GROUP_SORT" in env:
+        assert p.rows == p0.rows and not torch.equal(p.pack, p0.pack)
+        for name, a, b in zip(want._fields, got, want):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    else:
+        assert p.rows != p0.rows
+        for name, a, b in zip(want._fields, got, want):
+            assert relerr(a, b) < FP64_TOL, name

@@ -107,9 +107,16 @@ def test_make_inputs_bitwise_equals_jax(params, fold, dtype, order):
         assert a.dtype == b.dtype and a.shape == b.shape, k
         np.testing.assert_array_equal(b, a, err_msg=k)
     assert ("zdqs" in got) == fold
-    with pytest.raises(NotImplementedError):
-        tcloudsc.make_inputs(inp, torch.float64, fold=True, fold_curves=True,
-                             params=params)
+    # the folded curve and deposition rows are ported too (every form of
+    # them: tests/test_torch_forms.py)
+    if fold:
+        kw.update(fold_curves=True, fold_dep=True)
+        want = jmake_inputs(inp, getattr(jnp, dtype), **kw)
+        got = tcloudsc.make_inputs(inp, getattr(torch, dtype), **kw)
+        assert sorted(got) == sorted(want)
+        for k in ("zqsmix", "zfoeeice", "zdep0", "zinfac"):
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                          err_msg=k)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -188,7 +195,7 @@ def test_plain_version_matches_pallas_fp64(case):
     p = cc.pack_inputs_folded(inp, params, tcfg, dtype=torch.float64,
                               column_order="cyclic")
     c = tscheme.derived_consts(params, inp.ptsphy, torch.float64, tcfg)
-    assert p.rows == cc.pack_rows(True, cc.aer_rows(c))
+    assert p.rows == cc.pack_rows(aer=cc.aer_rows(c))
     np.testing.assert_array_equal(
         p.pack.numpy(),
         np.asarray(jp["pack"]).reshape(p.pack.shape[0], len(p.rows), -1))
@@ -391,6 +398,10 @@ def test_version_macros_reach_the_build(case):
         "CLOUDSC_LAERICEAUTO": int(c.LAERICEAUTO),
         "CLOUDSC_LAERLIQAUTOLSP": int(c.LAERLIQAUTOLSP and c.IWARMRAIN == 1),
         "CLOUDSC_LAERLIQCOLL": int(c.LAERLIQCOLL and c.IWARMRAIN == 1),
+        # the main path's form, no skipped section, dynamic skips on
+        "CLOUDSC_FC": 0, "CLOUDSC_FN": 1, "CLOUDSC_FD": 0,
+        "CLOUDSC_DYNAMIC_SKIPS": 1, "CLOUDSC_S521_ROUND_SKIP": 0,
+        **{f"CLOUDSC_SKIP_{t.upper()}": 0 for t in tscheme.SKIP_TAGS},
     }
     src = (build.CSRC / "cloudsc_scheme.cuh").read_text()
     guard = re.search(r"#if (!defined.*?)\n#error", src.replace("\\\n", " "),
@@ -401,7 +412,7 @@ def test_version_macros_reach_the_build(case):
     rows = _row_enum(v)
     assert rows[-1] == "R_COUNT"
     assert rows[:-1] == [f"R_{n.upper()}"
-                         for n in cc.pack_rows(True, cc.aer_rows(c))]
+                         for n in cc.pack_rows(aer=cc.aer_rows(c))]
     default = build.source_hash(build.nvcc_flags())
     assert (build.source_hash(build.nvcc_flags(version=v)) == default) == \
         (case == "reference")

@@ -22,6 +22,7 @@ the CPU: its host pack, its plain version and the CUDA wrapper's contract.
 
 import ctypes
 import re
+import shutil
 from pathlib import Path
 
 import jax
@@ -77,7 +78,7 @@ def test_pack_bitwise_equals_jax(params, dtype, ncol):
     nlev = inp.klev
     want = np.asarray(jp["pack"]).reshape(nlev + 1, len(p.rows), -1)[..., :ncol]
     want_col = np.asarray(jp["col"]).reshape(4, -1)[:, :ncol]
-    assert p.rows == cc.pack_rows(True) and p.fn
+    assert p.rows == cc.pack_rows() and p.fn
     assert tuple(p.rows) == tuple(pc._pack_rows_f(False, True, False))
     assert p.pack.dtype == tdt and p.pack.is_contiguous()
     np.testing.assert_array_equal(p.pack.numpy(), want)
@@ -181,7 +182,7 @@ def test_plain_matches_jax_folded_scan_fp64(params, plain_fp64_100, fn):
     inp, _, c, out = plain_fp64_100
     if not fn:
         p = cc.pack_inputs_folded(inp, params, dtype=torch.float64, fn=False)
-        assert p.rows == cc.pack_rows(False) and not p.fn
+        assert p.rows == cc.pack_rows(fn=False) and not p.fn
         out = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
     fields = make_inputs(inp, jnp.float64, fold=True, fold_newton=fn,
                          params=params)
@@ -279,7 +280,7 @@ def test_const_names_match_c_enum(params):
 def test_pack_rows_match_c_enum():
     names = _c_enum("Row")
     assert names[-1] == "R_COUNT"
-    assert names[:-1] == [f"R_{n.upper()}" for n in cc.pack_rows(True)]
+    assert names[:-1] == [f"R_{n.upper()}" for n in cc.pack_rows()]
 
 
 @pytest.mark.parametrize("config", [(1, 2, 1, 1), (2, 1, 1, 1), (2, 2, 2, 1),
@@ -307,18 +308,33 @@ def test_kernel_refuses_other_arguments(params, plain_fp64_100):
     c32 = tscheme.derived_consts(params, 3600.0, torch.float32)
     with pytest.raises(ValueError, match="fp32/fp64"):
         cc.check_kernel_args(p, c32)
-    with pytest.raises(ValueError, match="dynamic skips"):
-        cc.check_kernel_args(p, tscheme.derived_consts(
-            params, 3600.0, torch.float64,
-            tscheme.SchemeConfig(dynamic_skips=False)))
+    # dynamic_skips=False is a build of its own now: taken, and stopped on
+    # a CPU pack only by the device check
+    nodyn = tscheme.derived_consts(params, 3600.0, torch.float64,
+                                   tscheme.SchemeConfig(dynamic_skips=False))
+    with pytest.raises(ValueError, match="CUDA device"):
+        cc.check_kernel_args(p, nodyn)
+    assert not cc.kernel_version(nodyn, p.form).dynamic_skips
+    with pytest.raises(ValueError, match="skip tags"):
+        cc.check_kernel_config(tscheme.derived_consts(
+            params, 3600.0, torch.float64, tscheme.SchemeConfig(skip=("s99",))))
+    with pytest.raises(ValueError, match="1\\|2"):
+        cc.check_kernel_config(tscheme.derived_consts(
+            params, 3600.0, torch.float64, tscheme.SchemeConfig(iwarmrain=3)))
     bad = cc.FoldedPack(pack=p.pack, col=p.col, rows=p.rows[:-1], fn=True)
     with pytest.raises(ValueError, match="layout"):
         cc.check_kernel_args(bad, c)
-    # the in-line CUADJTQ form runs in the plain version only
-    inline = cc.FoldedPack(pack=p.pack[:, :-1], col=p.col,
-                           rows=cc.pack_rows(False), fn=False)
-    with pytest.raises(ValueError, match="ZDQS"):
+    # the in-line CUADJTQ form is taken too: its pack passes the layout
+    # check, and a pack that claims a form its rows are not is refused
+    inline = cc.FoldedPack(pack=p.pack[:, :-1].contiguous(), col=p.col,
+                           rows=cc.pack_rows(fn=False), fn=False)
+    with pytest.raises(ValueError, match="CUDA device"):
         cc.check_kernel_args(inline, c)
+    assert not cc.kernel_version(c, inline.form).fn
+    liar = cc.FoldedPack(pack=p.pack, col=p.col, rows=p.rows, fn=True,
+                         fc=True)
+    with pytest.raises(ValueError, match="layout"):
+        cc.check_kernel_args(liar, c)
 
 
 def test_parse_ptxas():
@@ -512,39 +528,20 @@ _STUB_CUDA_RUNTIME = """#pragma once
 """
 
 
-@pytest.mark.parametrize("case", ["reference", *synthetic.VERSION_CASES])
-def test_scheme_header_matches_plain_on_cpu(case, tmp_path):
-    """csrc/cloudsc_scheme.cuh compiled for the host (tests/
-    cpu_scheme_harness.cpp: fused_kernel's level loop without the ring, g++
-    -ffp-contract=off, the version's CLOUDSC_* macros) against the plain
-    version on the same 100-column fp64 pack, within test_golden's FP64_TOL
-    per field (the host libm and torch's CPU kernels differ by ulps;
-    measured 1.1e-15). Each scheme version's branches and constants are
-    held on a host without a card: a wrong constant in any of the alternate
-    branches moves a field by 1e-6 to 0.6 of its sum."""
-    import shutil
+def host_harness_outputs(p, c, version, tmp_path):
+    """tests/cpu_scheme_harness.cpp built with g++ -ffp-contract=off and
+    `version`'s CLOUDSC_* macros (a stub cuda_runtime.h in `tmp_path`), run
+    on pack `p` and constants `c`: its outputs after `assemble`."""
     import subprocess
 
-    from cloudsc_tpu_torch.physics.cloudsc import CloudscOutputs
-
     gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs a host C++ compiler (g++)")
-    inp = _inp(100)
-    params = Params.from_input(inp)
-    cfg = tscheme.SchemeConfig()
-    if case != "reference":
-        inp, params, cfg = synthetic.version_case(case, inp, params)
-    c = tscheme.derived_consts(params, inp.ptsphy, torch.float64, cfg)
-    (tmp_path / "cuda_runtime.h").write_text(_STUB_CUDA_RUNTIME)
     exe = tmp_path / "harness"
     r = subprocess.run(
         [gxx, "-O1", "-std=c++17", "-ffp-contract=off", f"-I{tmp_path}",
-         f"-I{build.CSRC}", *cc.kernel_version(c).macros(), "-o", str(exe),
+         f"-I{build.CSRC}", *version.macros(), "-o", str(exe),
          str(Path(__file__).with_name("cpu_scheme_harness.cpp"))],
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    p = cc.pack_inputs_folded(inp, params, cfg, dtype=torch.float64)
     p.pack.numpy().tofile(tmp_path / "pack.bin")
     p.col.numpy().tofile(tmp_path / "col.bin")
     cc.const_vector(c).numpy().tofile(tmp_path / "consts.bin")
@@ -556,8 +553,34 @@ def test_scheme_header_matches_plain_on_cpu(case, tmp_path):
     nl, n = p.nlev, p.ncol
     sizes = (nl * len(cc.OLEV_ROWS) * n, (nl + 1) * len(cc.OHALF_ROWS) * n, n)
     lev, half, pr = raw.split(sizes)
-    got = cc.assemble((lev.reshape(nl, -1, n), half.reshape(nl + 1, -1, n),
-                       pr), p, c)
+    return cc.assemble((lev.reshape(nl, -1, n), half.reshape(nl + 1, -1, n),
+                        pr), p, c)
+
+
+@pytest.mark.parametrize("case", ["reference", *synthetic.VERSION_CASES])
+def test_scheme_header_matches_plain_on_cpu(case, tmp_path):
+    """csrc/cloudsc_scheme.cuh compiled for the host (tests/
+    cpu_scheme_harness.cpp: fused_kernel's level loop without the ring, g++
+    -ffp-contract=off, the version's CLOUDSC_* macros) against the plain
+    version on the same 100-column fp64 pack, within test_golden's FP64_TOL
+    per field (the host libm and torch's CPU kernels differ by ulps;
+    measured 1.1e-15). Each scheme version's branches and constants are
+    held on a host without a card: a wrong constant in any of the alternate
+    branches moves a field by 1e-6 to 0.6 of its sum. The forms' macros are
+    held the same way in test_torch_probe.py."""
+    from cloudsc_tpu_torch.physics.cloudsc import CloudscOutputs
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    inp = _inp(100)
+    params = Params.from_input(inp)
+    cfg = tscheme.SchemeConfig()
+    if case != "reference":
+        inp, params, cfg = synthetic.version_case(case, inp, params)
+    c = tscheme.derived_consts(params, inp.ptsphy, torch.float64, cfg)
+    (tmp_path / "cuda_runtime.h").write_text(_STUB_CUDA_RUNTIME)
+    p = cc.pack_inputs_folded(inp, params, cfg, dtype=torch.float64)
+    got = host_harness_outputs(p, c, cc.kernel_version(c), tmp_path)
     want = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
     bad = {name: relerr(getattr(got, name).numpy(), getattr(want, name).numpy())
            for name in CloudscOutputs._fields

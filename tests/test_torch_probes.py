@@ -599,3 +599,36 @@ def test_entry_point_without_card_exits_1(name):
     assert r.returncode == 1, r.stdout + r.stderr
     assert "needs a CUDA device" in r.stderr
     assert "{" not in r.stdout
+
+
+def test_kernel_lab_same_bits():
+    """kernel_lab's check: NaNs of equal bits are equal, 0.0 and -0.0 are
+    not, and neither are tensors of another shape or dtype."""
+    from cloudsc_tpu_torch.bench.kernel_lab import same_bits
+
+    a = torch.tensor([1.0, float("nan"), float("inf")], dtype=torch.float64)
+    assert same_bits(a, a.clone())
+    assert not same_bits(torch.tensor([0.0]), torch.tensor([-0.0]))
+    assert not same_bits(a, a[:2])
+    assert not same_bits(a, a.float())
+    assert same_bits(a.float(), a.float().clone())
+
+
+@pytest.mark.parametrize("mode", ["full", "init", "floor"])
+def test_kernel_lab_plain_is_the_body_on_the_cpu(mode):
+    """kernel_lab's plain version of each body equals what the wrapper runs
+    on a CPU pack (its plain version), bit for bit."""
+    from cloudsc_tpu_torch import data as tdata
+    from cloudsc_tpu_torch.bench.kernel_lab import plain, same_bits
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.params import Params as TParams
+    from cloudsc_tpu_torch.physics import scheme as tscheme
+
+    inp = tdata.load_input(tdata.default_input_path(), 100)
+    params = TParams.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, torch.float64)
+    p = cc.pack_inputs_folded(inp, params, dtype=torch.float64)
+    got = plain(p, c, mode)
+    want = cc.cloudsc_fused(p, c, mode=mode)
+    assert len(got) == len(want) == 3
+    assert all(same_bits(x, y) for x, y in zip(got, want))
