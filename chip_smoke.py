@@ -62,10 +62,10 @@ failed check (the script then exits non-zero and prints no result):
      field within FP64_TOL, and no field's MaxRelErr (the validation
      table's errsum/refsum) above the larger of the 10*eps flag bar and the
      JAX package's own fp64 engine's reading of that field at this size
-     (JAX_FP64_RELERR): a `!!!!` flag is accepted only where the reference
-     engine carries one at least as large; then the fields fetched once and
-     validated on the host, whose norms must equal the card's within
-     NORMS_RTOL per field and statistic;
+     (`bench.sweep.fp64_verdict`): a `!!!!` flag is accepted only where
+     the reference engine carries one at least as large; then the fields
+     fetched once and validated on the host, whose norms must equal the
+     card's within NORMS_RTOL per field and statistic;
   3s. the eager scan engine (`CloudscDriver(backend="scan")`) in fp64 at the
      same size, validated on the card under the same bars; it launches no
      kernel (every count unchanged);
@@ -129,7 +129,15 @@ failed check (the script then exits non-zero and prints no result):
      `driver.check_finite` on outputs poisoned with one; `--profile`
      writes a non-empty Chrome trace; `--sweep-nproma 64,128` prints two
      config lines and perf tables and one validation table.
-     Each of phases 6-9 prints its seconds.
+  10. the measurement entries: `cloudsc_tpu_torch.bench.bench.main()` in
+     this process, fp32 and fp64 (CLOUDSC_BENCH_PRECISION), with K1's
+     counts reset just before and read just after (1 + 10 launches of the
+     reference build each): one JSON line, no `skipped` key, a positive
+     value, config `cuda/grouped+fold...`; then `bench.sweep --ngptot
+     16384 --kernel cuda --precision fp64 --iterations 1 --validate` (no
+     field over FP64_TOL or the JAX engine's reading) and `bench.sweep
+     --weak-scaling 1`, each exit 0 with a parsed rate.
+     Each of phases 6-10 prints its seconds.
 
 The line before the last is the kernel table as JSON, with each kernel's
 bound (`bound_ms`: the larger of its modeled bytes over the card's memory
@@ -147,32 +155,19 @@ import subprocess
 import sys
 import time
 
+# test_golden.py's fp64 bar (ref: validate_mod.F90's errsum/refsum metric),
+# and the judgement of a run's MaxRelErrs against the JAX fp64 engine's
+from cloudsc_tpu_torch.bench.sweep import (FP64_TOL, JAX_FP64_RELERR,
+                                           fp64_verdict)
+
 NGPTOT, NPROMA, ITERATIONS = 163840, 128, 10
-# test_golden.py's bars (ref: validate_mod.F90's errsum/refsum metric)
-FP64_TOL = 5.0e-14
+# test_golden.py's fp32 bars
 FP32_TOL_DEFAULT = 2.0e-2
 FP32_TOL = {
     "PFSQLF": 0.5, "PFSQIF": 0.5, "PFSQRF": 0.5, "PFSQSF": 0.5,
     "PFCQLNG": 0.5, "PFCQNNG": 0.5, "PFCQRNG": 0.5, "PFCQSNG": 0.5,
     "TENDENCY_LOC%CLD": 0.1, "TENDENCY_LOC%Q": 0.05,
 }
-# The JAX package's fp64 engine (test_golden's XLA scan on the CPU) against
-# the reference at 163,840 columns: validate's MaxRelErr per field (errsum/
-# refsum, read as 0 where the absolute errsum is below eps). Its columns are
-# exact copies of the 100-column run's, so it follows from that run weighted
-# by each column's copy count; tests/test_torch_driver.py recomputes it.
-JAX_FP64_RELERR = {
-    "PLUDE": 0.0, "PCOVPTOT": 2.9787054195918165e-17, "PRAINFRAC_TOPRFZ": 0.0,
-    "PFSQLF": 1.8894803421667218e-14, "PFSQIF": 9.516770899673154e-15,
-    "PFCQLNG": 0.0, "PFCQNNG": 0.0,
-    "PFSQRF": 1.9142795253811026e-14, "PFSQSF": 9.482191141213821e-15,
-    "PFCQRNG": 0.0, "PFCQSNG": 0.0, "PFSQLTUR": 0.0, "PFSQITUR": 0.0,
-    "PFPLSL": 0.0, "PFPLSN": 2.4265917257707723e-15, "PFHPSL": 0.0,
-    "PFHPSN": 2.426721006132933e-15, "TENDENCY_LOC%A": 2.463951279120334e-15,
-    "TENDENCY_LOC%Q": 0.0, "TENDENCY_LOC%T": 9.84419829278889e-15,
-    "TENDENCY_LOC%CLD": 0.0,
-}
-FLAG_BAR = 10.0 * 2.220446049250313e-16  # validate's 10*eps, fp64
 KERNEL_SOURCE = "cloudsc_tpu_torch/csrc/cloudsc_fused.cu"
 KERNEL_REPLACES = "cloudsc_tpu/kernels/pallas_cloudsc.py:977"
 PROBES_SOURCE = "cloudsc_tpu_torch/csrc/probes.cu"
@@ -958,13 +953,15 @@ def _check_bars(tag, errs):
         raise RuntimeError(f"{tag} over tolerance: {bad}")
     flagged = {e.name: e.relerr for e in errs if e.flagged}
     if tag.endswith("fp64"):
-        over = over_jax_reading(errs)
+        over = fp64_verdict(NGPTOT, {e.name: e.relerr for e in errs}
+                            )["over_jax_reading"]
         if over:
             raise RuntimeError(f"{tag}: MaxRelErr above both the flag bar "
                                f"and the JAX engine's reading: {over}")
+        jax = JAX_FP64_RELERR[NGPTOT]
         print(f"{tag}: every field's MaxRelErr within max(10*eps, JAX "
               f"engine's reading); flagged "
-              + ", ".join(f"{n} {v:.3e} (JAX {JAX_FP64_RELERR[n]:.3e})"
+              + ", ".join(f"{n} {v:.3e} (JAX {jax.get(n, 0.0):.3e})"
                           for n, v in flagged.items()))
     return flagged
 
@@ -1641,11 +1638,74 @@ def phase_flags(inp, params):
     return seconds
 
 
-def over_jax_reading(errs) -> dict:
-    """fp64 fields (validate.FieldErrors) whose MaxRelErr is above both the
-    10*eps flag bar and the JAX engine's own reading at 163,840 columns."""
-    return {e.name: e.relerr for e in errs
-            if not e.relerr <= max(FLAG_BAR, JAX_FP64_RELERR[e.name])}
+def phase_measurement_entries():
+    """The bench entry in this process, fp32 and fp64, K1's counts reset
+    just before and read just after each; then the sweep's grid at 16,384
+    columns in fp64 and its weak scaling on one card, each a process of
+    its own. Returns ({precision: (JSON line, launches)}, grid record,
+    weak-scaling record, seconds)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from cloudsc_tpu_torch.bench import bench, sweep
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+
+    t0 = time.perf_counter()
+    lines = {}
+    saved = os.environ.get("CLOUDSC_BENCH_PRECISION")
+    try:
+        for tag in ("fp32", "fp64"):
+            os.environ["CLOUDSC_BENCH_PRECISION"] = tag
+            cc.LAUNCHES = 0
+            cc.VERSION_LAUNCHES.clear()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = bench.main()
+            launches = cc.VERSION_LAUNCHES[cc.KernelVersion()]
+            out = [x for x in buf.getvalue().splitlines()
+                   if not x.startswith("#")]
+            if rc != 0 or len(out) != 1:
+                raise RuntimeError(f"bench {tag}: rc {rc}, output "
+                                   f"{buf.getvalue()!r}")
+            rec = json.loads(out[0])
+            if "skipped" in rec or not rec["value"] > 0 \
+                    or not rec["config"].startswith("cuda/grouped+fold") \
+                    or launches != 1 + bench.CARD_ITERS \
+                    or cc.LAUNCHES != launches:
+                raise RuntimeError(f"bench {tag}: {rec}, {launches} "
+                                   f"reference-build launches of "
+                                   f"{cc.LAUNCHES}")
+            print(f"phase 10 bench {tag}: {out[0]}; {launches} K1 launches")
+            lines[tag] = (rec, launches)
+    finally:
+        if saved is None:
+            os.environ.pop("CLOUDSC_BENCH_PRECISION", None)
+        else:
+            os.environ["CLOUDSC_BENCH_PRECISION"] = saved
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for name, argv in (
+                ("grid", ["--ngptot", "16384", "--kernel", "cuda",
+                          "--precision", "fp64", "--iterations", "1",
+                          "--validate"]),
+                ("weak", ["--weak-scaling", "1"])):
+            path = os.path.join(tmp, f"{name}.json")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = sweep.main([*argv, "--out", path])
+            recs = json.loads(open(path).read())
+            rate = recs[0].get("cols_per_s" if name == "grid" else "value")
+            if rc != 0 or len(recs) != 1 or not rate:
+                raise RuntimeError(f"sweep {argv}: rc {rc}, {recs}\n"
+                                   f"{buf.getvalue()[-3000:]}")
+            runs[name] = recs[0]
+    grid = runs["grid"]  # the sweep exits 1 on a field over its fp64 bar
+    seconds = time.perf_counter() - t0
+    print(f"phase 10 sweep: grid fp64 16384 {grid['cols_per_s']} columns/s "
+          f"(K1 {grid['compute_ms']} ms, flagged {grid['flagged']}); weak "
+          f"scaling 1 card {runs['weak']['value']} columns/s; {seconds:.1f} s")
+    return lines, grid, runs["weak"], seconds
 
 
 def main() -> int:
@@ -1714,6 +1774,8 @@ def main() -> int:
     mesh = phase_mesh(inp, params)
     levels_s = phase_levels(params)
     flags_s = phase_flags(inp, params)
+    bench_lines, sweep_grid, sweep_weak, entries_s = \
+        phase_measurement_entries()
 
     nlev = inp.klev
     from cloudsc_tpu_torch.bench import timing
@@ -1837,6 +1899,15 @@ def main() -> int:
               f"{launches_r} (their rows above are a correctness run, not a "
               f"speed figure)")
     print(f"timing levels [{card}]: {levels_s:.1f} s; flags {flags_s:.1f} s")
+    for tag, (rec, launches_b) in bench_lines.items():
+        print(f"timing bench {tag} [{card}]: {rec['value']} columns/s per "
+              f"chip, vs_baseline {rec['vs_baseline']} (bench.bench: "
+              f"{launches_b} K1 launches, CUDA events over 10 driver steps)")
+    print(f"timing sweep [{card}]: fp64 16384 K1 {sweep_grid['compute_ms']} "
+          f"ms a step, {sweep_grid['cols_per_s']} columns/s (TOTAL row, "
+          f"host clock), peak {sweep_grid.get('peak_mib')} MiB, process "
+          f"{sweep_grid['wall_s']:.1f} s; weak scaling 1 card "
+          f"{sweep_weak['value']} columns/s; phase 10 {entries_s:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     # the table's times are fp32 (K1's three bodies, the probes)
     max_abs, ms, plain_ms, _ = k["fp32"]

@@ -19,13 +19,12 @@ reports:
     kernel's (SB, 128) tile and at a 32-column warp, and for the warp the
     share of (warp, level) units where some but not all lanes are active:
     the divergent units K1 pays for;
-  - with `--device cuda`, the masks at `--ngptot` columns in the driver's
-    layout (grouped, activity-sorted columns), where the warp rates are
-    measured, not modeled.
+  - with `--device cuda` (the default), the masks at `--ngptot` columns
+    (default 163,840) in the driver's layout (grouped, activity-sorted
+    columns), where the warp rates are measured, not modeled.
 
-    python -m cloudsc_tpu_torch.bench.activity_probe --device cpu --ngptot 100
-    python -m cloudsc_tpu_torch.bench.activity_probe --device cuda \\
-        --ngptot 163840 [--out FILE]
+    python -m cloudsc_tpu_torch.bench.activity_probe [--ngptot N] [--out FILE]
+    python -m cloudsc_tpu_torch.bench.activity_probe --device cpu   # 100 columns
 """
 
 from __future__ import annotations
@@ -42,7 +41,8 @@ LAYOUTS = ("cyclic", "grouped", "sorted")
 WARP = 32
 # the JAX kernel's column tile, SB x 128 lanes at its SB of 32
 JAX_TILE = 32 * 128
-# the columns of the modeled layouts (--device cpu): the main path's width
+# the main path's width: the columns of the modeled layouts (--device cpu)
+# and those measured on the card by default
 MODEL_NGPTOT = 163840
 
 
@@ -137,13 +137,20 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m cloudsc_tpu_torch.bench.activity_probe",
         description="Guard activity of the dynamic skips.")
-    p.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
-    p.add_argument("--ngptot", type=int, default=100)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda measures the masks in the driver's layout; "
+                        "cpu runs the JAX probe's modeled mode")
+    p.add_argument("--ngptot", type=int, default=None,
+                   help=f"columns (default {MODEL_NGPTOT} on the card, 100 "
+                        f"with --device cpu)")
     p.add_argument("--sb", type=int, nargs="+", default=[32],
                    help="JAX tile heights to model (a tile is SB x 128)")
     p.add_argument("--nshards", type=int, default=1)
     p.add_argument("--out", default=None, help="write the records as JSON")
-    return p.parse_args(argv)
+    a = p.parse_args(argv)
+    if a.ngptot is None:
+        a.ngptot = MODEL_NGPTOT if a.device == "cuda" else 100
+    return a
 
 
 def run(a) -> list[dict]:

@@ -14,7 +14,10 @@ select the SchemeConfig version, with the JAX CLI's choices and defaults.
 On the card the outputs stay there and are validated there (the norms of
 `validate.device_field_norms` against the reference expanded on the card);
 only the (21, 5) norms reach the host. With `--device cpu`, or with a
-reference to write, the host validates the fetched fields.
+reference to write, the host validates the fetched fields. On the card a
+line after the validation gives the peak device memory of the run and its
+validation (`torch.cuda.max_memory_allocated`), which `bench/sweep.py`
+records.
 With EC_PMON set in the environment the energy line of `runtime.pmon` (the
 card's, from NVML) follows the timing line.
 
@@ -226,6 +229,9 @@ def _run(parser, args, sweep) -> int:
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if on_card else [])
             trace = profile(activities=acts)
+        if on_card:  # the peak line below reads the last run alone
+            for d in driver.devices:
+                torch.cuda.reset_peak_memory_stats(d)
         out, timings, timer = driver.run(inp, iterations=args.iterations,
                                          fetch_outputs=fetch, trace=trace,
                                          debug_nans=args.debug_nans)
@@ -271,6 +277,11 @@ def _run(parser, args, sweep) -> int:
             norms = device_field_norms(outs, refs).cpu().numpy()
             validate_from_norms(norms, ngptotg, multiprocess=multi,
                                 work_eps=float(torch.finfo(dtype).eps))
+    if on_card and rank0:
+        peak = max(torch.cuda.max_memory_allocated(d) for d in driver.devices)
+        print(f" peak device memory: {peak / 2**20:.1f} MiB "
+              f"(torch.cuda.max_memory_allocated: the run and its "
+              f"validation)")
 
     # snapshot hooks for regenerating goldens, the reference's Serialbox
     # write hooks (ref: src/prototype1/support/serialize_mod.F90:62-130)

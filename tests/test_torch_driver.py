@@ -347,13 +347,14 @@ def test_validate_copy_equals_jax_package(cpu_fp64_100, reference_100,
     assert tvalidate.FIELD_ATTR == jvalidate.FIELD_ATTR
 
 
-def _relerr_full_size(out, reference_100):
-    """validate's FieldErrors at chip_smoke's 163,840 columns, from a
-    100-column run: the expanded columns are exact copies, so each column's
-    error counts as often as the cyclic expansion copies it."""
+def _relerr_full_size(out, reference_100, ngptot=None):
+    """validate's FieldErrors at `ngptot` columns (chip_smoke's 163,840 by
+    default), from a 100-column run: the expanded columns are exact copies,
+    so each column's error counts as often as the cyclic expansion copies
+    it."""
     from chip_smoke import NGPTOT
 
-    w = texpand.group_counts(100, NGPTOT).astype(np.float64)
+    w = texpand.group_counts(100, ngptot or NGPTOT).astype(np.float64)
     errs = []
     for name, ndim in tvalidate.VALIDATION_ORDER:
         got = np.asarray(getattr(out, tvalidate.FIELD_ATTR[name]), np.float64)
@@ -368,23 +369,37 @@ def _relerr_full_size(out, reference_100):
 
 def test_chip_smoke_fp64_bar(golden_outputs_fp64, cpu_fp64_100,
                              reference_100):
-    """chip_smoke's JAX_FP64_RELERR is the JAX fp64 engine's reading at
-    163,840 columns, and the port's plain version meets chip_smoke's fp64
-    bar at that size, which an engine twice as far off on one flagged field
-    fails."""
-    import chip_smoke
+    """chip_smoke's fp64 bar (the sweep's fp64_verdict at its NGPTOT) holds
+    the JAX fp64 engine's reading at 163,840 columns, and the port's plain
+    version meets it at that size, which an engine twice as far off on one
+    flagged field fails."""
+    from chip_smoke import NGPTOT
+    from cloudsc_tpu_torch.bench.sweep import JAX_FP64_RELERR, fp64_verdict
+
+    def over_jax_reading(errs):
+        return fp64_verdict(NGPTOT, {e.name: e.relerr for e in errs}
+                            )["over_jax_reading"]
 
     jax_errs = _relerr_full_size(golden_outputs_fp64, reference_100)
-    assert [e.name for e in jax_errs] == list(chip_smoke.JAX_FP64_RELERR)
-    for e in jax_errs:
-        np.testing.assert_allclose(chip_smoke.JAX_FP64_RELERR[e.name],
-                                   e.relerr, rtol=1e-5, atol=0, err_msg=e.name)
+    assert {e.name: e.relerr for e in jax_errs if e.relerr} == \
+        pytest.approx(JAX_FP64_RELERR[NGPTOT], rel=1e-5, abs=0)
     port_errs = _relerr_full_size(cpu_fp64_100[0], reference_100)
-    assert chip_smoke.over_jax_reading(port_errs) == {}
+    assert over_jax_reading(port_errs) == {}
     # the bar has teeth: twice the JAX engine's reading on one flux field
     worse = [dataclasses.replace(e, errsum=2 * e.errsum)
              if e.name == "PFSQLF" else e for e in jax_errs]
-    assert list(chip_smoke.over_jax_reading(worse)) == ["PFSQLF"]
+    assert list(over_jax_reading(worse)) == ["PFSQLF"]
+
+
+def test_sweep_fp64_bar_by_size(golden_outputs_fp64, reference_100):
+    """The sweep's JAX_FP64_RELERR is the JAX fp64 engine's reading at each
+    size it lists (the fields it leaves out read 0)."""
+    from cloudsc_tpu_torch.bench import sweep
+
+    for n, table in sweep.JAX_FP64_RELERR.items():
+        errs = _relerr_full_size(golden_outputs_fp64, reference_100, n)
+        got = {e.name: e.relerr for e in errs if e.relerr}
+        assert got == pytest.approx(table, rel=1e-5, abs=0), n
 
 
 @pytest.mark.parametrize("env", [{"CLOUDSC_GROUP_COLUMNS": "0"},

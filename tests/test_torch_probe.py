@@ -153,6 +153,17 @@ def test_round_skip_reads_its_environment_and_probes(monkeypatch):
         assert masks[t].sum() <= masks["s521"].sum()
 
 
+def test_probe_defaults_to_the_card():
+    from cloudsc_tpu_torch.bench import activity_probe as tap
+
+    a = tap.parse_args([])
+    assert (a.device, a.ngptot) == ("cuda", tap.MODEL_NGPTOT) == \
+        ("cuda", 163840)
+    a = tap.parse_args(["--device", "cpu"])
+    assert (a.device, a.ngptot) == ("cpu", 100)
+    assert tap.parse_args(["--ngptot", "16387"]).ngptot == 16387
+
+
 # K1's form builds, and the per-round 5.2.1 skip alone
 FORM_CASES = {**synthetic.FORM_CASES,
               "round_skip": ({}, dict(s521_round_skip=True))}
