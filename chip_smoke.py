@@ -45,9 +45,11 @@ failed check (the script then exits non-zero and prints no result):
      outputs against the reference configuration's build on the same input,
      which must differ (that build's time there is printed beside);
   1f. K1's form builds (`data.synthetic.FORM_CASES`: the seven other
-     (fc, fn, fd) packs, fn off being the in-line CUADJTQ; skip sets A and
-     B, B with the per-round 5.2.1 skip; no dynamic skips; between them
-     every macro branch of the scheme header)
+     (fc, fn, fd) packs, fn off being the in-line CUADJTQ; the unfolded
+     pack (CLOUDSC_FOLD_INPUTS=0); the four derivable flux rows written by
+     the kernel (CLOUDSC_FOLD_OUTPUTS=0) on the folded and the unfolded
+     pack; skip sets A and B, B with the per-round 5.2.1 skip; no dynamic
+     skips; between them every macro branch of the scheme header)
      at RAGGED_NCOL columns, fp64 and fp32: each build's main path under
      its driver switches with the per-version counts reset and read, then
      on the driver's pack the build against its plain version, all three
@@ -67,13 +69,23 @@ failed check (the script then exits non-zero and prints no result):
      fetched once and validated on the host, whose norms must equal the
      card's within NORMS_RTOL per field and statistic;
   3s. the eager scan engine (`CloudscDriver(backend="scan")`) in fp64 at the
-     same size, validated on the card under the same bars; it launches no
-     kernel (every count unchanged);
-  3m. the main path in fp64 at the same size with CLOUDSC_FOLD_NEWTON=0 and
-     with CLOUDSC_FOLD_CURVES=1 CLOUDSC_FOLD_DEP=1: launches by version,
-     validated on the card under the fp64 bars, K1 timed beside the
-     reference build on the same input (two windows each, alternating, the
-     least of each's);
+     same size, validated on the card under the same bars, then one step
+     with CLOUDSC_SCAN_PACKED=1 (`physics.cloudsc.scan_pack` once after the
+     copy): every field equal to the plain dict's bit for bit; it launches
+     no kernel (every count unchanged);
+  3m. the main path in fp64 at the same size with CLOUDSC_FOLD_NEWTON=0,
+     with CLOUDSC_FOLD_CURVES=1 CLOUDSC_FOLD_DEP=1 and with
+     CLOUDSC_FOLD_INPUTS=0: launches by version, validated on the card
+     under the fp64 bars, the build bit for bit with its plain version on
+     the driver's pack, K1 timed beside the reference build on the same
+     input (two windows each, alternating, the least of each's), the host
+     pack and H2D;
+  3p. the per-field entry in fp32 at the same size: the main path with
+     CLOUDSC_PACKED_STORAGE=0 (the field dict packed on the card each
+     step) with the per-version counts reset and read, bit for bit with
+     the CLOUDSC_FOLD_INPUTS=0 main path and with
+     `cuda_cloudsc.cloudsc_fused_fields` on the card's field dict; the
+     device pack's time beside K1's;
   3l. the main path in fp32 in the cyclic (CLOUDSC_GROUP_COLUMNS=0) and the
      grouped unsorted (CLOUDSC_GROUP_SORT=0) layouts: every field equal to
      the sorted main path's bit for bit after the ungroup;
@@ -102,8 +114,9 @@ failed check (the script then exits non-zero and prints no result):
      after phase 5;
   5. the measurement lab's path, through its entry points
      (`cloudsc_tpu_torch.bench.kernel_lab --modes full init floor`,
-     `kernel_lab --skip s45r --foldn 0` and `.activity_probe --device cuda`
-     at RAGGED_NCOL columns, `.overlap_probe` with all five variants,
+     `kernel_lab --skip s45r --foldn 0`, `kernel_lab --modes full init
+     floor --fold 0 --foldo 0` (the three bodies on the unfolded pack)
+     and `.activity_probe --device cuda` at RAGGED_NCOL columns, `.overlap_probe` with all five variants,
      `.dma_probe`): the launch counts reset just before, read just after,
      every lab kernel launched, the skip-and-form build among them;
   6. ranks: `torchrun --standalone --nproc-per-node 2 chip_smoke.py
@@ -647,15 +660,22 @@ def phase1d_versions(inp, params, versions):
 
 
 # the driver's switches, all unset at their defaults
-FORM_ENV = ("CLOUDSC_FOLD_NEWTON", "CLOUDSC_FOLD_CURVES", "CLOUDSC_FOLD_DEP",
+FORM_ENV = ("CLOUDSC_FOLD_INPUTS", "CLOUDSC_FOLD_NEWTON",
+            "CLOUDSC_FOLD_CURVES", "CLOUDSC_FOLD_DEP", "CLOUDSC_FOLD_OUTPUTS",
+            "CLOUDSC_PACKED_STORAGE", "CLOUDSC_SCAN_PACKED",
             "CLOUDSC_GROUP_COLUMNS", "CLOUDSC_GROUP_SORT",
             "CLOUDSC_S521_ROUND_SKIP")
 
 
 def _form_env(form: dict) -> dict:
-    """The driver's switches that select the pack's form `form` ({fc, fn,
-    fd} keywords, each absent at its default)."""
+    """The driver's switches that select the build's form `form` ({
+    fold_inputs, fc, fn, fd, fold_outputs} keywords, each absent at its
+    default)."""
     env = {}
+    if form.get("fold_inputs") is False:
+        env["CLOUDSC_FOLD_INPUTS"] = "0"
+    if form.get("fold_outputs") is False:
+        env["CLOUDSC_FOLD_OUTPUTS"] = "0"
     if form.get("fc"):
         env["CLOUDSC_FOLD_CURVES"] = "1"
     if form.get("fn") is False:
@@ -695,10 +715,10 @@ def form_versions(params, ptsphy) -> dict:
     out = {}
     for name, (form, cfg) in synthetic.FORM_CASES.items():
         with _env(_form_env(form)):
-            flags = cc.fold_flags()
+            flags, fo = cc.fold_flags(), cc.fold_outputs_flag()
             c = scheme.derived_consts(params, ptsphy, torch.float32,
                                       scheme.SchemeConfig(**cfg))
-        out[name] = cc.kernel_version(c, flags)
+        out[name] = cc.kernel_version(c, flags, fo)
     return out
 
 
@@ -707,7 +727,9 @@ def phase_forms(params, forms):
     driver's main path under its switches (one warm-up and one step), the
     per-version counts reset just before and read just after; then on the
     driver's pack the build against its plain version, all three buffers
-    bit for bit, and its time and the plain version's. A build that skips
+    bit for bit (the four derivable flux rows in the buffer where the
+    build writes them), and its time and the plain version's. A build that
+    skips
     sections computes wrong physics by construction (set B drops the
     implicit solve, whose unsolved sums overflow fp32): its outputs need
     not be finite, and are held bit for bit, NaNs included. Returns {name:
@@ -745,16 +767,18 @@ def phase_forms(params, forms):
                     bool(torch.isfinite(a).all()) for a in out):
                 raise RuntimeError(f"form {name} {tag}: non-finite outputs")
             del out
-            c, consts = driver.step.c, driver.step.consts
-            if cc.kernel_version(c, p.form) != v or len(p.rows) != len(
-                    cc.pack_rows(v.fc, v.fn, v.fd)):
+            c, consts, fo = driver.step.c, driver.step.consts, \
+                driver.fold_outputs
+            if cc.kernel_version(c, p.form, fo) != v or len(p.rows) != len(
+                    cc.pack_rows(v.fc, v.fn, v.fd,
+                                 fold_inputs=v.fold_inputs)):
                 raise RuntimeError(f"form {name}: runs "
-                                   f"{cc.kernel_version(c, p.form)}")
-            got = cc.cloudsc_fused(p, c, consts)
+                                   f"{cc.kernel_version(c, p.form, fo)}")
+            got = cc.cloudsc_fused(p, c, consts, fold_outputs=fo)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            want = cc.cloudsc_fused_plain(p, c)
+            want = cc.cloudsc_fused_plain(p, c, fo)
             stop.record()
             stop.synchronize()
             plain_ms = start.elapsed_time(stop)
@@ -770,11 +794,13 @@ def phase_forms(params, forms):
                                        f"!= plain version (max abs err "
                                        f"{float(err):.3e})")
             del got, want
-            ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
+            ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts,
+                                                    fold_outputs=fo),
+                           ITERATIONS)
             results[name][tag] = dict(
                 launches=launches[v], max_abs=max_abs, ms=ms,
                 plain_ms=plain_ms, rows=len(p.rows),
-                bound=timing.bound(cc.k1_bytes(p),
+                bound=timing.bound(cc.k1_bytes(p, fo),
                                    timing.K1_FLOP_PER_COLUMN * p.ncol, tag))
             print(f"phase forms {name} {tag} ({len(p.rows)} rows): kernel == "
                   f"plain version bit for bit on all three buffers at "
@@ -786,35 +812,58 @@ def phase_forms(params, forms):
 
 def phase_form_main_path(inp, params, ref_dev):
     """The main path at NGPTOT columns in fp64 with CLOUDSC_FOLD_NEWTON=0
-    (the in-line CUADJTQ) and with CLOUDSC_FOLD_CURVES=1 CLOUDSC_FOLD_DEP=1
-    (fc+fn+fd): launches by version, validation on the card under the fp64
-    bars, and K1 timed by CUDA events beside the reference build on the
-    same input (two windows each, alternating, the least of each's).
-    Returns {name: record}."""
+    (the in-line CUADJTQ), with CLOUDSC_FOLD_CURVES=1 CLOUDSC_FOLD_DEP=1
+    (fc+fn+fd) and with CLOUDSC_FOLD_INPUTS=0 (the unfolded pack):
+    launches by version, validation on the card under the fp64 bars, the
+    build against its plain version on the driver's pack (all three
+    buffers bit for bit), and K1 timed by CUDA events beside the reference
+    build on the same input (two windows each, alternating, the least of
+    each's). Returns {name: record}."""
     import torch
 
     from cloudsc_tpu_torch.bench import timing
+    from cloudsc_tpu_torch.bench.kernel_lab import same_bits
     from cloudsc_tpu_torch.data import synthetic
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     results = {}
-    for name in ("fn_off", "fc_fn_fd"):
+    for name in ("fn_off", "fc_fn_fd", "unfolded"):
         with _env(_form_env(synthetic.FORM_CASES[name][0])):
             driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
                                    device="cuda")
             cc.VERSION_LAUNCHES.clear()
+            t0 = time.perf_counter()
             out, timings, _ = driver.run(inp, iterations=ITERATIONS,
                                          fetch_outputs=False)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
             launches = dict(cc.VERSION_LAUNCHES)
-            p = driver.prepare(inp).to("cuda")
-        v = cc.kernel_version(driver.step.c, p.form)
+            t0 = time.perf_counter()
+            host = driver.prepare(inp)
+            pack_s = time.perf_counter() - t0
+            p = host.to("cuda")
+            del host
+        v = cc.kernel_version(driver.step.c, p.form, driver.fold_outputs)
         if launches != {v: 1 + ITERATIONS} or v == cc.DEFAULT_VERSION:
             raise RuntimeError(f"{name} main path: launches {launches}")
         errs, _ = _card_validation(f"form {name} fp64", out, ref_dev)
         del out
         flagged = _check_bars(f"phase form main path {name} fp64", errs)
         c, consts = driver.step.c, driver.step.consts
+        got = cc.cloudsc_fused(p, c, consts)
+        t0 = time.perf_counter()
+        want = cc.cloudsc_fused_plain(p, c)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for bname, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got,
+                               want):
+            if not same_bits(a, b):
+                err = (a - b).abs().nan_to_num(float("inf")).max()
+                raise RuntimeError(f"form {name} fp64 {bname} at {NGPTOT} "
+                                   f"columns: kernel != plain version (max "
+                                   f"abs err {float(err):.3e})")
+        del got, want
         p0 = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
                            device="cuda").prepare(inp).to("cuda")
         form_ms, ref_ms = [], []
@@ -825,21 +874,82 @@ def phase_form_main_path(inp, params, ref_dev):
                                     ITERATIONS))
         ms, ref_ms = min(form_ms), min(ref_ms)
         results[name] = dict(launches=launches[v], ms=ms, ref_ms=ref_ms,
-                             rows=len(p.rows),
+                             plain_ms=plain_ms, rows=len(p.rows),
                              driver_ms=timings.compute_s * 1e3,
+                             pack_s=pack_s, h2d_s=timings.h2d_s,
+                             run_s=run_s,
                              flagged=sorted(flagged),
                              bound=timing.bound(
                                  cc.k1_bytes(p),
                                  timing.K1_FLOP_PER_COLUMN * NGPTOT, "fp64"))
         print(f"phase form main path {name} fp64 ({len(p.rows)} rows): 21 "
               f"fields within FP64_TOL and the JAX bar, validated on the "
-              f"card, {launches[v]} launches of {name}'s build; K1 "
-              f"{ms:.4f} ms, the reference build on the same input "
-              f"{ref_ms:.4f} ms (the least of two windows each, "
+              f"card, {launches[v]} launches of {name}'s build, kernel == "
+              f"plain version bit for bit on all three buffers at {NGPTOT} "
+              f"columns; K1 {ms:.4f} ms, the reference build on the same "
+              f"input {ref_ms:.4f} ms (the least of two windows each, "
               f"alternating)")
         del p, p0
         torch.cuda.empty_cache()
     return results
+
+
+def phase_fields_entry(inp, params):
+    """The per-field entry in fp32 at NGPTOT columns: the main path with
+    CLOUDSC_PACKED_STORAGE=0 (the field dict on the card, packed there each
+    step, unfolded) with the per-version counts reset just before and read
+    just after (the unfolded build alone), every field equal bit for bit
+    to the CLOUDSC_FOLD_INPUTS=0 main path's (the host's unfolded pack)
+    after the ungroup, and `cloudsc_fused_fields` on `fields_on_device`'s
+    dict equal bit for bit to both; then the device pack's time and K1's on
+    it (CUDA events). Returns a record."""
+    import torch
+
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    def run(env):
+        with _env(env):
+            driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float32,
+                                   device="cuda")
+            cc.VERSION_LAUNCHES.clear()
+            out, t, _ = driver.run(inp, iterations=ITERATIONS,
+                                   fetch_outputs=False)
+        return driver, out, t, dict(cc.VERSION_LAUNCHES)
+
+    driver, fields_out, t_fields, launches = run(
+        {"CLOUDSC_PACKED_STORAGE": "0"})
+    v = cc.kernel_version(driver.step.c, {"fold_inputs": False, "fn": False})
+    if launches != {v: 1 + ITERATIONS} or driver.config_name("cuda") != \
+            "cuda/fields+unfold+foldo":
+        raise RuntimeError(f"per-field main path: launches {launches}, "
+                           f"{driver.config_name('cuda')}")
+    _, pack_out, t_pack, _ = run({"CLOUDSC_FOLD_INPUTS": "0"})
+    fields = fields_on_device(inp, torch.float32, "cuda")
+    entry_out = cc.cloudsc_fused_fields(fields, params, inp.ptsphy)
+    for f, a, b, e in zip(pack_out._fields, fields_out, pack_out, entry_out):
+        if not (torch.equal(a, b) and torch.equal(e, b)):
+            raise RuntimeError(f"per-field {f}: differs from the unfolded "
+                               f"pack's main path")
+    del fields_out, pack_out, entry_out
+    c, consts = driver.step.c, driver.step.consts
+    pack_ms = _event_ms(lambda: cc.pack_inputs(fields, params, None,
+                                               inp.ptsphy), ITERATIONS)
+    p = cc.pack_inputs(fields, params, None, inp.ptsphy)
+    ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
+    rec = dict(launches=launches[v], pack_ms=pack_ms, ms=ms,
+               pack_gb=p.pack.numel() * p.pack.element_size() / 1e9,
+               driver_ms=t_fields.compute_s * 1e3,
+               unfolded_driver_ms=t_pack.compute_s * 1e3)
+    print(f"phase fields entry fp32: the per-field main path "
+          f"({launches[v]} launches of the unfolded build), "
+          f"cloudsc_fused_fields and the unfolded pack's main path equal bit "
+          f"for bit on all 21 fields; device pack {pack_ms:.4f} ms "
+          f"({rec['pack_gb']:.3f} GB), K1 on it {ms:.4f} ms")
+    del fields, p
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_layouts(inp, params):
@@ -894,15 +1004,23 @@ def phase5_lab_path():
                           "--precision", "fp32", "fp64"]),
             (kernel_lab, ["--ngptot", small, "--skip", "s45r",
                           "--foldn", "0", "--precision", "fp32", "fp64"]),
+            (kernel_lab, ["--ngptot", small, "--modes", "full", "init",
+                          "floor", "--fold", "0", "--foldo", "0",
+                          "--precision", "fp32", "fp64"]),
             (activity_probe, ["--device", "cuda", "--ngptot", small]),
             (overlap_probe, ["--variants", *cp.VARIANTS]),
             (dma_probe, [])):
         if mod.main(argv) != 0:
             raise RuntimeError(f"{mod.__name__} {argv} failed")
-    lab_form = cc.KernelVersion(fn=False, skip=frozenset({"s45r"}))
-    if cc.VERSION_LAUNCHES[lab_form] == 0:
-        raise RuntimeError("lab path: kernel_lab --skip s45r --foldn 0 "
-                           "launched no build of that form")
+    for argv, lab_form in (
+            ("--skip s45r --foldn 0",
+             cc.KernelVersion(fn=False, skip=frozenset({"s45r"}))),
+            ("--fold 0 --foldo 0",
+             cc.KernelVersion(fn=False, fold_inputs=False,
+                              fold_outputs=False))):
+        if cc.VERSION_LAUNCHES[lab_form] == 0:
+            raise RuntimeError(f"lab path: kernel_lab {argv} launched no "
+                               f"build of that form")
     counts = {"cloudsc_fused": cc.LAUNCHES, "cloudsc_floor": cc.FLOOR_LAUNCHES,
               "cloudsc_init": cc.INIT_LAUNCHES,
               "overlap_probe": cp.OVERLAP_LAUNCHES,
@@ -1042,8 +1160,11 @@ def phase_main_path(inp, params, dtype, ref_dev):
 
 def phase_scan(inp, params, ref_dev):
     """The eager scan engine in fp64 at NGPTOT columns, validated on the
-    card under the fp64 bars; no kernel count may move. Returns
-    (timings, wall s of driver.run)."""
+    card under the fp64 bars; then one step of the pre-packed closure
+    (CLOUDSC_SCAN_PACKED=1, `scan_pack` once after the copy), every field
+    equal to the plain dict's bit for bit; no kernel count may move.
+    Returns (timings, wall s of driver.run, the packed closure's
+    timings)."""
     import torch
 
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
@@ -1065,14 +1186,29 @@ def phase_scan(inp, params, ref_dev):
         raise RuntimeError(f"the scan engine moved a kernel count: {before} "
                            f"-> {counts()}")
     errs, validate_s = _card_validation("scan fp64", out, ref_dev)
-    del out
     flagged = _check_bars("phase scan fp64", errs)
     print(f"phase scan fp64: 21 fields within FP64_TOL, validated on the "
           f"card in {validate_s:.3f} s, no kernel launched, flagged "
           f"{sorted(flagged)}; step {timings.compute_s * 1e3:.1f} ms, "
           f"warm-up step {timings.compile_s:.3f} s, h2d {timings.h2d_s:.3f} "
           f"s, driver.run {run_s:.3f} s")
-    return timings, run_s
+    with _env({"CLOUDSC_SCAN_PACKED": "1"}):
+        packed = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
+                               device="cuda", backend="scan", nproma=NPROMA)
+    if packed.config_name("cuda") != "scan/cyclic+packed":
+        raise RuntimeError(f"scan_pack: runs {packed.config_name('cuda')}")
+    got, t_packed, _ = packed.run(inp, iterations=1, fetch_outputs=False)
+    if counts() != before:
+        raise RuntimeError("the pre-packed scan moved a kernel count")
+    for f, a, b in zip(out._fields, got, out):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"scan_pack {f}: differs from the plain "
+                               f"dict's step")
+    del out, got
+    print(f"phase scan fp64 scan_pack: all 21 fields equal the plain dict's "
+          f"bit for bit; step {t_packed.compute_s * 1e3:.1f} ms against "
+          f"{timings.compute_s * 1e3:.1f} ms")
+    return timings, run_s, t_packed
 
 
 def _kernel_counts():
@@ -1743,10 +1879,11 @@ def main() -> int:
     _, t64, run64, val64, host_val64 = phase_main_path(inp, params,
                                                        torch.float64, ref_dev)
     torch.cuda.empty_cache()
-    t_scan, run_scan = phase_scan(inp, params, ref_dev)
+    t_scan, run_scan, t_scan_packed = phase_scan(inp, params, ref_dev)
     fmain = phase_form_main_path(inp, params, ref_dev)
     del ref_dev
     torch.cuda.empty_cache()
+    fentry = phase_fields_entry(inp, params)
     layouts = phase_layouts(inp, params)
 
     # the differentiable path and the loop: one plain fp64 field dict,
@@ -1808,7 +1945,14 @@ def main() -> int:
     print(f"timing scan fp64 [{card}]: {t_scan.compute_s * 1e3:.1f} ms/step "
           f"(CUDA events over 1 step after a warm-up step of "
           f"{t_scan.compile_s:.3f} s); h2d {t_scan.h2d_s:.3f} s; driver.run "
-          f"{run_scan:.3f} s")
+          f"{run_scan:.3f} s; pre-packed (scan_pack) "
+          f"{t_scan_packed.compute_s * 1e3:.1f} ms/step")
+    print(f"timing fields entry fp32 [{card}]: device pack "
+          f"{fentry['pack_ms']:.4f} ms ({fentry['pack_gb']:.3f} GB copied), "
+          f"K1 on it {fentry['ms']:.4f} ms (CUDA events over {ITERATIONS} "
+          f"calls); driver loop with CLOUDSC_PACKED_STORAGE=0 "
+          f"{fentry['driver_ms']:.4f} ms/step (pack + K1), with "
+          f"CLOUDSC_FOLD_INPUTS=0 {fentry['unfolded_driver_ms']:.4f} ms/step")
     print(f"timing adjoint fp64 [{card}]: d(scalar head)/d(pt) at {NGPTOT} "
           f"columns {adj_s:.3f} s in {adj_blocks} blocks, peak "
           f"{adj_peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
@@ -1852,7 +1996,10 @@ def main() -> int:
               f"({r['ms'] / r['ref_ms'] - 1:+.1%}); driver loop "
               f"{r['driver_ms']:.4f} ms; bound {r['bound'][0]:.4f} ms (by "
               f"{r['bound'][1]}, {r['rows']} rows) = "
-              f"{r['bound'][0] / r['ms']:.3f} of the kernel's time; flagged "
+              f"{r['bound'][0] / r['ms']:.3f} of the kernel's time; plain "
+              f"version {r['plain_ms']:.1f} ms (1 call); host pack "
+              f"{r['pack_s']:.3f} s (prepare, host clock), h2d "
+              f"{r['h2d_s']:.3f} s, driver.run {r['run_s']:.3f} s; flagged "
               f"{r['flagged']}")
     print(f"timing layouts fp32 [{card}]: driver loop "
           + ", ".join(f"{k} {v:.4f} ms/step" for k, v in layouts.items())
@@ -1983,8 +2130,14 @@ def main() -> int:
             r = fmain[name]
             entry["main_path_fp64"] = {
                 "ncol": NGPTOT, "launches": r["launches"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "max_abs_err": 0.0,
                 "reference_build_ms": r["ref_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1]}
+        if name == "unfolded":
+            # the same build through the per-field entry
+            entry["fields_fp32"] = {
+                "ncol": NGPTOT, "launches": fentry["launches"],
+                "ms": fentry["ms"], "device_pack_ms": fentry["pack_ms"]}
         entries.append(entry)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

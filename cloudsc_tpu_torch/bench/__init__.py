@@ -21,4 +21,8 @@ The measurement entries:
 JAX package's `bench.py`; its skip line without a card); `sweep` runs the
 CLI over a grid of sizes, kernels and precisions, or `bench` over 1..N
 cards (the JAX package's `bench/sweep.py`).
+
+`bench`'s `config` names the driver's switches it ran under (e.g.
+`cuda/grouped+unfold+foldo0`), so a run under CLOUDSC_FOLD_INPUTS=0 is
+not taken for the reference build's number.
 """

@@ -4,10 +4,14 @@ Counterpart of the JAX package's `bench.py`. It prints one JSON line with
 that file's keys: `metric`, `value` (columns/s per chip), `unit`
 ("columns/s"), `vs_baseline` (value over the reference's dp A100
 scc-hoist, 340e9 / 124823.29 columns/s, rounded to 4 places) and `config`,
-the route and the pack: `cuda/grouped+fold+foldo+fn` by default, `+fc` and
-`+fd` under CLOUDSC_FOLD_CURVES=1 and CLOUDSC_FOLD_DEP=1, `cyclic` under
-CLOUDSC_GROUP_COLUMNS=0, `scan/cyclic` for the eager engine and `plain/...`
-for the kernel's plain version on the CPU. On the card, lines starting
+the route and the payload (`CloudscDriver.config_name`):
+`cuda/grouped+fold+foldo+fn` by default, `+fc` and `+fd` under
+CLOUDSC_FOLD_CURVES=1 and CLOUDSC_FOLD_DEP=1, `+unfold` (and no `+fn`)
+under CLOUDSC_FOLD_INPUTS=0, `+foldo0` under CLOUDSC_FOLD_OUTPUTS=0,
+`cyclic` under CLOUDSC_GROUP_COLUMNS=0, `fields+unfold` under
+CLOUDSC_PACKED_STORAGE=0 (the field dict, packed on the card each step),
+`scan/cyclic` for the eager engine (`+packed` under CLOUDSC_SCAN_PACKED=1)
+and `plain/...` for the kernel's plain version on the CPU. On the card, lines starting
 with `#` (the card's name and power limit, `timing.header`) come before it.
 
 It times the span of the CLI's perf table: `CloudscDriver.run(inp,
@@ -73,9 +77,9 @@ LAST_MEASURED_PATH = (Path(__file__).resolve().parents[2] / "build"
 CARD_NGPTOT, CPU_NGPTOT = 163840, 8192
 CARD_ITERS, CPU_ITERS = 10, 2
 # the default configuration, with the pack's form switches
-# (`cuda_cloudsc.FOLD_ENV`): only a run with every one of these at its
-# default records `last_measured` (bench.py's knob_defaults, the port's
-# switches)
+# (`cuda_cloudsc.FOLD_ENV`) and the output rows' (`FOLDO_ENV`): only a run
+# with every one of these at its default records `last_measured`
+# (bench.py's knob_defaults, the port's switches)
 KNOB_DEFAULTS = {
     "CLOUDSC_BENCH_BACKEND": "auto",
     "CLOUDSC_BENCH_NGPTOT": str(CARD_NGPTOT),
@@ -85,6 +89,8 @@ KNOB_DEFAULTS = {
     "CLOUDSC_GROUP_COLUMNS": "1",
     "CLOUDSC_GROUP_SORT": "1",
     "CLOUDSC_S521_ROUND_SKIP": "0",
+    "CLOUDSC_PACKED_STORAGE": "1",
+    "CLOUDSC_SCAN_PACKED": "0",
 }
 
 
@@ -111,20 +117,16 @@ def skip_line() -> dict:
 
 
 def default_config() -> bool:
-    from ..kernels.cuda_cloudsc import FOLD_ENV
+    from ..kernels.cuda_cloudsc import FOLD_ENV, FOLDO_ENV
 
-    knobs = {**KNOB_DEFAULTS, **{var: d for _, var, d in FOLD_ENV}}
+    knobs = {**KNOB_DEFAULTS, **{var: d for _, var, d in FOLD_ENV},
+             FOLDO_ENV[0]: FOLDO_ENV[1]}
     return all(os.environ.get(k, d) == d for k, d in knobs.items())
 
 
 def config_name(driver, route: str) -> str:
-    """`route/layout`: the eager engine's cyclic field dict, or the
-    kernel's pack (its column layout, then its form's switches)."""
-    if driver.backend == "scan":
-        return "scan/cyclic"
-    layout = ("grouped" if driver.grouped else "cyclic") + "+fold+foldo"
-    layout += "".join(f"+{k}" for k in ("fc", "fn", "fd") if driver.form[k])
-    return f"{route}/{layout}"
+    """`route/payload` (`CloudscDriver.config_name`)."""
+    return driver.config_name(route)
 
 
 def measure(cpu: bool) -> dict:

@@ -11,6 +11,10 @@ validation table, in the format of `python -m cloudsc_tpu`.
 fused CUDA kernel (auto, cuda; with `--device cpu` auto runs its plain
 PyTorch version) or the eager scan engine (scan). The four scheme flags
 select the SchemeConfig version, with the JAX CLI's choices and defaults.
+The JAX driver's environment switches (CLOUDSC_FOLD_INPUTS, _FOLD_OUTPUTS,
+_PACKED_STORAGE, _SCAN_PACKED, _FOLD_NEWTON/_CURVES/_DEP, _GROUP_COLUMNS,
+_GROUP_SORT) choose the payload, and an `ENGINE=` line after the config
+line names what they chose (`CloudscDriver.config_name`).
 On the card the outputs stay there and are validated there (the norms of
 `validate.device_field_norms` against the reference expanded on the card);
 only the (21, 5) norms reach the host. With `--device cpu`, or with a
@@ -222,6 +226,10 @@ def _run(parser, args, sweep) -> int:
             print(f"     NUMPROC={max(driver.ndevices, nranks)}, "
                   f"NUMOMP={args.numomp}, NGPTOTG={ngptotg}, "
                   f"NPROMA={nproma}, NGPBLKS={ngpblks}", flush=True)
+            # what the switches chose, so that no run is taken for
+            # another configuration's
+            route = "cuda" if on_card else "plain"
+            print(f"     ENGINE={driver.config_name(route)}", flush=True)
         trace = None
         if args.profile:
             from torch.profiler import ProfilerActivity, profile

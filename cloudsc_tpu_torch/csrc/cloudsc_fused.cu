@@ -2,15 +2,20 @@
 //
 // Replaces the TPU kernel cloudsc_tpu/kernels/pallas_cloudsc.py::_build ->
 // pl.pallas_call(_kernel) (body: _kernel, _sub_level, _write_level_rows and
-// scheme.level_init / scheme.level_step), on the folded input pack with the
-// four derivable flux rows folded out of the outputs, in every form the TPU
-// kernel takes: the streamed ZDQS row or the in-line CUADJTQ, with or
-// without the streamed saturation-curve and deposition rows. One library
-// holds one version, named by the CLOUDSC_* macros of cloudsc_scheme.cuh
-// (SchemeConfig's four switches, skips and aerosol couplings, and the
-// pack's form, whose optional rows the ring streams beside the 18 base
-// rows: 19 in the main path's form, 30 with every form row, 5 more with
-// every aerosol coupling).
+// scheme.level_init / scheme.level_step), in every contract the TPU kernel
+// takes: the folded input pack, with the streamed ZDQS row or the in-line
+// CUADJTQ, with or without the streamed saturation-curve and deposition
+// rows, or the unfolded pack (CLOUDSC_FOLD_INPUTS=0: the raw state and
+// tendencies, whose x + PTSPHY*tend, PMFU+PMFD and PHRSW+PHRLW the kernel
+// forms at working precision, with the in-line CUADJTQ); the four
+// derivable flux rows folded out of the outputs, or written here
+// (CLOUDSC_FOLD_OUTPUTS=0: PFSQLTUR/ITUR as running sums in registers,
+// PFHPSL/N = -RLVTT/RLSTT x PFPLSL/N). One library holds one version,
+// named by the CLOUDSC_* macros of cloudsc_scheme.cuh (SchemeConfig's four
+// switches, skips and aerosol couplings, the pack's form and the output
+// rows); the ring streams the form's rows: 19 in the main path's form, 18
+// to 30 in the other folded forms, 27 unfolded, 5 more with every aerosol
+// coupling.
 //
 // Schedule: the reference's own k-caching schedule. One thread owns one
 // column and integrates it top-down through all levels; the 33 cross-level
@@ -24,10 +29,11 @@
 //
 // What bounds it on this card: per column and step it streams 138 x 19
 // values in and 137 x 9 + 138 x 10 values out (~5,240 values: 21 kB in
-// fp32, 42 kB in fp64) against ~124,823 flops in the reference's flop model
-// (timer_mod.F90: 12,482,329 per 100 columns), about 6 flop a byte in fp32:
-// by the roofline the bytes bound it (PERF.md: 1.025 / 2.050 ms a step at
-// 163,840 columns). But one column a thread takes many registers, so few
+// fp32, 42 kB in fp64; unfolded, 138 x 27 in: ~6,344 values) against
+// ~124,823 flops in the reference's flop model (timer_mod.F90: 12,482,329
+// per 100 columns), about 6 flop a byte in fp32: by the roofline the bytes
+// bound it (PERF.md: 1.025 / 2.050 ms a step at 163,840 columns, 1.240 /
+// 2.480 ms unfolded). But one column a thread takes many registers, so few
 // warps are resident, and each level's work is a long dependent scalar
 // chain. A kernel that loads level k's rows at level k waits out the memory
 // latency once a level: the first version did, streamed at ~60 % of the
@@ -76,7 +82,11 @@ namespace cloudsc {
 enum { OL_PLUDE, OL_PCOVPTOT, OL_TEND_T, OL_TEND_Q, OL_TEND_A, OL_TCLD0,
        OL_COUNT = OL_TCLD0 + 4 };
 enum { OH_PFSQLF, OH_PFSQIF, OH_PFCQLNG, OH_PFCQNNG, OH_PFSQRF, OH_PFSQSF,
-       OH_PFCQRNG, OH_PFCQSNG, OH_PFPLSL, OH_PFPLSN, OH_COUNT };
+       OH_PFCQRNG, OH_PFCQSNG, OH_PFPLSL, OH_PFPLSN,
+#if !CLOUDSC_FOLD_OUTPUTS
+       OH_PFSQLTUR, OH_PFSQITUR, OH_PFHPSL, OH_PFHPSN,
+#endif
+       OH_COUNT };
 
 // K1's ring geometry: S stages, BLOCK threads a block, the launch bound's
 // MIN_BLOCKS an SM
@@ -165,6 +175,9 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   T a_lf = Z, a_if = Z, a_lng = Z, a_nng = Z;
   T alf_prev = Z, aif_prev = Z, alng_prev = Z, anng_prev = Z;
   T rain_prev = Z, snow_prev = Z, lnegr_prev = Z, lnegs_prev = Z;
+#if !CLOUDSC_FOLD_OUTPUTS
+  T a_ltur = Z, a_itur = Z;
+#endif
 
   for (int k = 0; k <= nlev; ++k) {
     // section 8 flux rows for half-level k, the state before level k
@@ -181,6 +194,12 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
     oh[OH_PFCQSNG * n] = anng_prev + lnegs_prev;
     oh[OH_PFPLSL * n] = cr.pfplsx[IR] + cr.pfplsx[IL];
     oh[OH_PFPLSN * n] = cr.pfplsx[IS] + cr.pfplsx[II];
+#if !CLOUDSC_FOLD_OUTPUTS
+    oh[OH_PFSQLTUR * n] = a_ltur;
+    oh[OH_PFSQITUR * n] = a_itur;
+    oh[OH_PFHPSL * n] = -K[C_RLVTT] * (cr.pfplsx[IR] + cr.pfplsx[IL]);
+    oh[OH_PFHPSN * n] = -K[C_RLSTT] * (cr.pfplsx[IS] + cr.pfplsx[II]);
+#endif
     if (k == nlev) break;
 
     // level k+S-1 goes into the stage level k-1 left; levels k and k+1
@@ -188,9 +207,8 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
     fetch(k + D);
     cp_async_wait<S - 2>();
 
-    T zqx_in[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) zqx_in[m] = P(k, R_ZQX0_IN + m);
+    T ztp1_in, zqv_in, za_in, zqx_in[4];
+    state_rows(P, k, K, ztp1_in, zqv_in, za_in, zqx_in);
     const T pap = P(k, R_PAP);
     const T plude_in = P(k, R_PLUDE);
     const T paph_k = P(k, R_PAPH);
@@ -198,8 +216,7 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
     T curves[NCURVES];
     curve_rows(P, k, curves);
     Init<T> in;
-    level_init(K, P(k, R_ZTP1_IN), P(k, R_ZQV_IN), P(k, R_ZA_IN), zqx_in, pap,
-               curves, in);
+    level_init(K, ztp1_in, zqv_in, za_in, zqx_in, pap, curves, in);
 
     T plude_row = plude_in, pcovptot_row = Z, tend_t_row = in.tend_t_pre,
       tend_q_row = in.tend_q_pre, tend_a_row = Z;
@@ -264,6 +281,12 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
     a_if = a_if + ice_inc;
     a_lng = a_lng + in.zlneg[IL] * zgdph_r;
     a_nng = a_nng + in.zlneg[II] * zgdph_r;
+#if !CLOUDSC_FOLD_OUTPUTS
+    // the input-only running sums (cuda_cloudsc.foldo_synthesize's
+    // recurrence)
+    a_ltur = a_ltur + P(k, R_PVFL) * ptsphy * zgdph_r;
+    a_itur = a_itur + P(k, R_PVFI) * ptsphy * zgdph_r;
+#endif
   }
   cp_async_wait<0>();  // only empty groups are left
   o_prainfrac[j] = cr.prainfrac;
@@ -273,8 +296,8 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
 // `_mode` "floor" and "init"), for the measurement lab
 // (cloudsc_tpu_torch/bench/kernel_lab.py). They take the same pack and write
 // the same three buffers as fused_kernel, so they stream the step's exact
-// I/O: `floor` with degenerate compute (one add a level), `init` with the
-// section-1 compute only. On the TPU the BlockSpecs stream every row
+// I/O, folded or unfolded: `floor` with degenerate compute (one add a level:
+// ztp1_in + zqv_in, or pt + pq), `init` with the section-1 compute only. On the TPU the BlockSpecs stream every row
 // whatever the body reads; here a load whose value goes unused would be
 // dropped, so each level's rows (and col) are read through a volatile
 // pointer: every input byte the step's model counts is loaded once. Every
@@ -324,7 +347,11 @@ floor_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   for (int k = 0; k <= nlev; ++k) {
     T row[R_COUNT];
     load_level(pack, k, n, j, row);
+#if CLOUDSC_FOLD_INPUTS
     v = row[R_ZTP1_IN] + row[R_ZQV_IN];
+#else
+    v = row[R_PT] + row[R_PQ];
+#endif
     write_level(o_lev, o_half, k, nlev, n, j, v);
   }
   o_prainfrac[j] = v;
@@ -347,14 +374,13 @@ init_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   for (int k = 0; k <= nlev; ++k) {
     T row[R_COUNT];
     load_level(pack, k, n, j, row);
-    T zqx_in[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m) zqx_in[m] = row[R_ZQX0_IN + m];
+    const auto R = [&](int, int r) { return row[r]; };
+    T ztp1_in, zqv_in, za_in, zqx_in[4];
+    state_rows(R, k, K, ztp1_in, zqv_in, za_in, zqx_in);
     T curves[NCURVES];
-    curve_rows([&](int, int r) { return row[r]; }, k, curves);
+    curve_rows(R, k, curves);
     Init<T> in;
-    level_init(K, row[R_ZTP1_IN], row[R_ZQV_IN], row[R_ZA_IN], zqx_in,
-               row[R_PAP], curves, in);
+    level_init(K, ztp1_in, zqv_in, za_in, zqx_in, row[R_PAP], curves, in);
     v = in.ztp1 + in.zqsmix + in.zfokoop + in.zli;
     write_level(o_lev, o_half, k, nlev, n, j, v);
   }

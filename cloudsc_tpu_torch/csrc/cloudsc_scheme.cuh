@@ -1,18 +1,21 @@
 // CLOUDSC physics for one column and one level, in CUDA C++ for sm_90a.
 //
 // A scalar translation of cloudsc_tpu_torch/physics/scheme.py (itself a
-// line-for-line port of cloudsc_tpu/physics/scheme.py) on the folded input
-// contract, for the version the build names: the SchemeConfig switches
-// IWARMRAIN, IEVAPRAIN, IEVAPSNOW, IDEPICE and the four aerosol couplings,
-// the pack's form (CLOUDSC_FC, _FN, _FD: the streamed saturation-curve,
-// ZDQS and deposition rows), the skipped sections (CLOUDSC_SKIP_<tag>, one
-// macro a tag of scheme.SKIP_TAGS), CLOUDSC_DYNAMIC_SKIPS and
-// CLOUDSC_S521_ROUND_SKIP arrive as macros (kernels/build.py from
-// cuda_cloudsc.KernelVersion), and each library holds one version, so no
-// build carries another version's branches in its instruction stream. The
-// reference configuration is (2, 2, 1, 1) without aerosol couplings, the
-// ZDQS row alone, no skipped section, dynamic skips on and no per-round
-// skip. `ref:` line numbers point to src/cloudsc_fortran/cloudsc.F90 of the
+// line-for-line port of cloudsc_tpu/physics/scheme.py) on the folded or the
+// unfolded input contract, for the version the build names: the
+// SchemeConfig switches IWARMRAIN, IEVAPRAIN, IEVAPSNOW, IDEPICE and the
+// four aerosol couplings, the pack's form (CLOUDSC_FOLD_INPUTS: the folded
+// pack, or the raw state and tendencies summed here; CLOUDSC_FC, _FN, _FD:
+// the folded pack's streamed saturation-curve, ZDQS and deposition rows),
+// the output rows (CLOUDSC_FOLD_OUTPUTS, read by cloudsc_fused.cu), the
+// skipped sections (CLOUDSC_SKIP_<tag>, one macro a tag of
+// scheme.SKIP_TAGS), CLOUDSC_DYNAMIC_SKIPS and CLOUDSC_S521_ROUND_SKIP
+// arrive as macros (kernels/build.py from cuda_cloudsc.KernelVersion), and
+// each library holds one version, so no build carries another version's
+// branches in its instruction stream. The reference configuration is
+// (2, 2, 1, 1) without aerosol couplings, the folded pack with the ZDQS row
+// alone, the derivable flux rows folded out, no skipped section, dynamic
+// skips on and no per-round skip. `ref:` line numbers point to src/cloudsc_fortran/cloudsc.F90 of the
 // reference.
 //
 // Rounding. Every operation is written in the Python module's order; the
@@ -41,6 +44,7 @@
     !defined(CLOUDSC_LAERLIQAUTOLSP) || !defined(CLOUDSC_LAERLIQCOLL) || \
     !defined(CLOUDSC_FC) || !defined(CLOUDSC_FN) || !defined(CLOUDSC_FD) || \
     !defined(CLOUDSC_DYNAMIC_SKIPS) || !defined(CLOUDSC_S521_ROUND_SKIP) || \
+    !defined(CLOUDSC_FOLD_INPUTS) || !defined(CLOUDSC_FOLD_OUTPUTS) ||   \
     !defined(CLOUDSC_SKIP_S31) || !defined(CLOUDSC_SKIP_S33) ||   \
     !defined(CLOUDSC_SKIP_S34E) || !defined(CLOUDSC_SKIP_S34C) || \
     !defined(CLOUDSC_SKIP_S37) || !defined(CLOUDSC_SKIP_S43A) ||  \
@@ -56,6 +60,10 @@
     (CLOUDSC_IEVAPSNOW != 1 && CLOUDSC_IEVAPSNOW != 2) ||   \
     (CLOUDSC_IDEPICE != 1 && CLOUDSC_IDEPICE != 2)
 #error "each scheme switch is 1 or 2"
+#endif
+// the JAX kernel's gate `fold and fn`: an unfolded pack has no form rows
+#if !CLOUDSC_FOLD_INPUTS && (CLOUDSC_FC || CLOUDSC_FN || CLOUDSC_FD)
+#error "the unfolded pack (CLOUDSC_FOLD_INPUTS=0) streams no FC/FN/FD rows"
 #endif
 // the liquid couplings live in the Sundqvist warm-rain branch only
 #define CLOUDSC_AER_LIQ \
@@ -89,14 +97,17 @@ enum Const {
   C_rcl_const5i, C_rcl_const2s, C_rcl_const3s, C_rcl_const4s,
   C_rcl_const5s,
   C_rkconv_dt, C_rg_rpecons_half, C_c065_const6i, C_c065_const6s,
+  C_RLVTT,
   C_COUNT
 };
 
-// Rows of the folded pack, in the order of pack_rows(fc, fn, fd,
-// aer_rows(c)) in kernels/cuda_cloudsc.py: PACK_ROWS, the form's curve,
-// ZDQS and deposition rows, then the aerosol rows the build's couplings
-// read. The ring follows R_COUNT.
+// Rows of the pack, in the order of pack_rows(fc, fn, fd, aer_rows(c),
+// fold_inputs) in kernels/cuda_cloudsc.py: folded, PACK_ROWS and the form's
+// curve, ZDQS and deposition rows; unfolded, UNFOLDED_ROWS; then the
+// aerosol rows the build's couplings read. The rows also read at level
+// k+1 come first. The ring follows R_COUNT.
 enum Row {
+#if CLOUDSC_FOLD_INPUTS
   R_PMF, R_PLU, R_PAPH, R_ZTP1_IN, R_ZQV_IN, R_ZA_IN, R_PAP, R_PVERVEL,
   R_ZHR, R_PLUDE, R_PSNDE, R_PSUPSAT, R_PVFL, R_PVFI,
   R_ZQX0_IN, R_ZQX1_IN, R_ZQX2_IN, R_ZQX3_IN,
@@ -109,6 +120,12 @@ enum Row {
 #endif
 #if CLOUDSC_FD
   R_ZDEP0, R_ZINFAC,
+#endif
+#else
+  R_PMFU, R_PMFD, R_PLU, R_PAPH, R_PT, R_PQ, R_TENDENCY_TMP_T,
+  R_TENDENCY_TMP_Q, R_TENDENCY_TMP_A, R_PA, R_PAP, R_PVERVEL, R_PHRSW,
+  R_PHRLW, R_PLUDE, R_PSNDE, R_PSUPSAT, R_PVFL, R_PVFI,
+  R_PCLV0, R_PCLV1, R_PCLV2, R_PCLV3, R_TCLD0, R_TCLD1, R_TCLD2, R_TCLD3,
 #endif
 #if CLOUDSC_LAERICESED
   R_PRE_ICE,
@@ -174,7 +191,7 @@ __device__ __forceinline__ T foeewm_a(const T* K, T t, T alfa) {
           (T(1) - alfa) * d_exp(K[C_r3ies] * (t - K[C_RTT]) / (t - K[C_R4IES])));
 }
 
-// -- section 1: level init (scheme.level_init, folded contract) -------------
+// -- section 1: level init (scheme.level_init on the state of state_rows) ---
 template <typename T> struct Init {
   T ztp1, za, zaorig, zqx[NCLV], zqx0[NCLV];
   T zqsmix, zqsliq, zqsice, zfoeew, zfoeewmt, zfoeeliqt, zfoealfa;
@@ -295,16 +312,54 @@ template <typename T> struct Ys {
   T zqxn[NCLV], plude, pcovptot, tend_t, tend_q, tend_a;
 };
 
+// section 1's state inputs of level k through `P(lev, row)`: the folded
+// rows, or x + PTSPHY*tend formed here at working precision, in
+// scheme.level_init's order
+template <typename T, typename Rows>
+__device__ __forceinline__ void state_rows(const Rows& P, int k, const T* K,
+                                           T& ztp1, T& zqv, T& za,
+                                           T (&zqx)[4]) {
+#if CLOUDSC_FOLD_INPUTS
+  (void)K;
+  ztp1 = P(k, R_ZTP1_IN);
+  zqv = P(k, R_ZQV_IN);
+  za = P(k, R_ZA_IN);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) zqx[m] = P(k, R_ZQX0_IN + m);
+#else
+  const T dt = K[C_ptsphy];
+  ztp1 = P(k, R_PT) + dt * P(k, R_TENDENCY_TMP_T);
+  zqv = P(k, R_PQ) + dt * P(k, R_TENDENCY_TMP_Q);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) zqx[m] = P(k, R_PCLV0 + m) + dt * P(k, R_TCLD0 + m);
+  za = P(k, R_PA) + dt * P(k, R_TENDENCY_TMP_A);
+#endif
+}
+
+// PMFU+PMFD of level `lev`: the folded row, or the sum at working precision
+template <typename T, typename Rows>
+__device__ __forceinline__ T pmf_row(const Rows& P, int lev) {
+#if CLOUDSC_FOLD_INPUTS
+  return P(lev, R_PMF);
+#else
+  return P(lev, R_PMFU) + P(lev, R_PMFD);
+#endif
+}
+
 // the streamed rows of level_step's inputs, through `P(lev, row)`: level k's
-// and the k+1 rows pmf and plu
+// and the k+1 rows pmf (or pmfu and pmfd) and plu
 template <typename T, typename Rows>
 __device__ __forceinline__ void level_rows(const Rows& P, int k,
                                            LevelX<T>& x) {
-  x.pmf = P(k, R_PMF);
-  x.pmf_next = P(k + 1, R_PMF);
+  x.pmf = pmf_row<T>(P, k);
+  x.pmf_next = pmf_row<T>(P, k + 1);
   x.plu_next = P(k + 1, R_PLU);
   x.pvervel = P(k, R_PVERVEL);
+#if CLOUDSC_FOLD_INPUTS
   x.zhr = P(k, R_ZHR);
+#else
+  x.zhr = P(k, R_PHRSW) + P(k, R_PHRLW);
+#endif
   x.psnde = P(k, R_PSNDE);
   x.psupsat = P(k, R_PSUPSAT);
 #if CLOUDSC_FN

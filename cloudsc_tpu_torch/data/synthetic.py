@@ -13,10 +13,11 @@ the pack or the field dict expands them.
 other beyond the reference configuration: the four single alternates and
 the aerosol build, each with the input that takes its branch.
 `FORM_CASES` names K1's form builds that are held to their plain version:
-the seven other (fc, fn, fd) packs, two skip sets that between them drop
-all 16 sections (the second with the per-round 5.2.1 skip) and the build
-without dynamic skips; between them every macro branch of the scheme
-header.
+the seven other (fc, fn, fd) packs, the unfolded pack, the four derivable
+flux rows written by the kernel on the folded and on the unfolded pack,
+two skip sets that between them drop all 16 sections (the second with the
+per-round 5.2.1 skip) and the build without dynamic skips; between them
+every macro branch of the scheme header and the kernel.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ VERSION_CASES = {
 SKIP_A = frozenset({"s31", "s34e", "s37", "s43b", "s44a", "s44c", "s45s",
                     "s521"})
 SKIP_B = frozenset(SKIP_TAGS) - SKIP_A
-# name -> (the pack's form keywords {fc, fn, fd}, SchemeConfig keywords)
+# name -> (the build's form keywords {fold_inputs, fc, fn, fd, fold_outputs},
+# each absent at its default, SchemeConfig keywords)
 FORM_CASES = {
     "fn_off": (dict(fn=False), {}),
     "fn_fd": (dict(fd=True), {}),
@@ -58,10 +60,21 @@ FORM_CASES = {
     "fd_inline": (dict(fn=False, fd=True), {}),
     "fc_inline": (dict(fc=True, fn=False), {}),
     "fc_fd_inline": (dict(fc=True, fn=False, fd=True), {}),
+    "unfolded": (dict(fold_inputs=False, fn=False), {}),
+    "foldo_off": (dict(fold_outputs=False), {}),
+    "unfolded_foldo_off": (dict(fold_inputs=False, fn=False,
+                                fold_outputs=False), {}),
     "skip_a": ({}, dict(skip=SKIP_A)),
     "skip_b_round": ({}, dict(skip=SKIP_B, s521_round_skip=True)),
     "no_dynamic_skips": ({}, dict(dynamic_skips=False)),
 }
+
+
+def split_form(form: dict) -> tuple[dict, bool]:
+    """A FORM_CASES form -> (the pack's form keywords, for
+    `cuda_cloudsc.pack_inputs_raw`; fold_outputs)."""
+    form = dict(form)
+    return form, form.pop("fold_outputs", True)
 
 
 def raining(inp):

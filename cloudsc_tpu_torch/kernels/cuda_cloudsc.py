@@ -1,9 +1,15 @@
-"""The fused CLOUDSC step: folded input pack, CUDA kernel, plain version, outputs.
+"""The fused CLOUDSC step: input pack, CUDA kernel, plain version, outputs.
 
-Counterpart of `cloudsc_tpu/kernels/pallas_cloudsc.py`: the folded layout
-with the folded-out flux rows, in every form the TPU kernel takes (the
-optional streamed saturation-curve, ZDQS and deposition rows; the main path
-streams ZDQS alone), on grouped or cyclic columns.
+Counterpart of `cloudsc_tpu/kernels/pallas_cloudsc.py`, in every contract
+the TPU kernel takes: the folded input pack (section 1's state sums and the
+always-summed pairs folded in fp64 on the host) in every form (the optional
+streamed saturation-curve, ZDQS and deposition rows; the main path streams
+ZDQS alone), or the unfolded pack (the raw state and tendencies, summed in
+the kernel at working precision: CLOUDSC_FOLD_INPUTS=0), built on the host
+from a snapshot or on the fields' device from a field dict
+(`cloudsc_fused_fields`, the per-field entry); the four derivable flux rows
+folded out of the outputs and rebuilt in `assemble`, or written by the
+kernel (CLOUDSC_FOLD_OUTPUTS=0); on grouped or cyclic columns.
 The TPU kernel it replaces is `_build` -> `pl.pallas_call(_kernel)` there; its
 Hopper translation is `csrc/cloudsc_fused.cu` (with `csrc/cloudsc_scheme.cuh`),
 built by `kernels/build.py`.
@@ -13,8 +19,9 @@ element (k, r, j) at `(k*nrows + r)*ncol + j`, so one thread per column reads
 and writes coalesced. Per-level rows carry an edge-replicated row `nlev`;
 `paph` has its real surface value there. Nothing of the TPU layout carries
 over (no (8, 128) tiles, no padding: the kernel bounds-checks its column).
-The pack states its own layout — its row names, and which optional rows it
-streams (`fc`, `fn`, `fd`) — so no consumer infers it from a row count.
+The pack states its own layout — its row names, whether it is folded
+(`fold_inputs`) and which optional rows it streams (`fc`, `fn`, `fd`) — so
+no consumer infers it from a row count.
 
 `cloudsc_fused` launches the kernel for a CUDA pack (or raises) and runs
 `cloudsc_fused_plain` — a level loop over `physics.scheme` on `(ncol,)` rows
@@ -33,8 +40,9 @@ as macros),
 `ring_schedule` models its slots and copy groups, and `occupancy` reads
 what the built kernel runs with on the card. Each version of the kernel
 (`KernelVersion`: SchemeConfig's switches, skips and the aerosol couplings,
-and the pack's form) is a build of its own, made at first use;
-`kernel_version(c, p.form)` names the one a configuration and pack run.
+the pack's form and the output rows) is a build of its own, made at first
+use; `kernel_version(c, p.form, fold_outputs)` names the one a
+configuration and pack run.
 """
 
 from __future__ import annotations
@@ -73,10 +81,25 @@ ZDQS_ROW = "zdqs"
 # _DEP_PACK_ROWS): section 1's saturation block and 3.7's deposition chain
 CURVE_ROWS = satfold.CURVE_ROWS
 DEP_ROWS = satfold.DEP_ROWS
-# the forms' environment switches and defaults (pallas_cloudsc.py:258-278)
-FOLD_ENV = (("fc", "CLOUDSC_FOLD_CURVES", "0"),
+# the unfolded pack's rows (CLOUDSC_FOLD_INPUTS=0): pallas_cloudsc._PACK_ROWS
+# (its 18 streamed fields, pclv0-3, tcld0-3) and paph, the four rows also
+# read at level k+1 first; the kernel forms x + PTSPHY*tend, PMFU+PMFD and
+# PHRSW+PHRLW itself
+UNFOLDED_ROWS = (
+    "pmfu", "pmfd", "plu", "paph",
+    "pt", "pq", "tendency_tmp_t", "tendency_tmp_q", "tendency_tmp_a",
+    "pa", "pap", "pvervel", "phrsw", "phrlw",
+    "plude", "psnde", "psupsat", "pvfl", "pvfi",
+    "pclv0", "pclv1", "pclv2", "pclv3", "tcld0", "tcld1", "tcld2", "tcld3",
+)
+# the forms' environment switches and defaults (pallas_cloudsc.py:223-278);
+# CLOUDSC_FOLD_INPUTS=0 turns the other three off (`fold_flags`)
+FOLD_ENV = (("fold_inputs", "CLOUDSC_FOLD_INPUTS", "1"),
+            ("fc", "CLOUDSC_FOLD_CURVES", "0"),
             ("fn", "CLOUDSC_FOLD_NEWTON", "1"),
             ("fd", "CLOUDSC_FOLD_DEP", "0"))
+# the output rows' switch and default (pallas_cloudsc.py:327)
+FOLDO_ENV = ("CLOUDSC_FOLD_OUTPUTS", "1")
 # per-column rows of `col`
 COL_ROWS = ("plsm", "ldcum", "ktype", "paph_surf")
 # rows of the per-level output buffer (the vapour-slot cloud tendency is
@@ -84,9 +107,12 @@ COL_ROWS = ("plsm", "ldcum", "ktype", "paph_surf")
 OLEV_ROWS = ("plude", "pcovptot", "tend_t", "tend_q", "tend_a",
              "tcld0", "tcld1", "tcld2", "tcld3")
 # rows of the half-level flux buffer; PFSQLTUR/PFSQITUR and PFHPSL/PFHPSN
-# are pure functions of streamed values and are rebuilt in `assemble`
+# (FOLDO_DROP) are pure functions of streamed values and are rebuilt in
+# `assemble`, unless the build writes them after the others
+# (fold_outputs=False: `ohalf_rows`)
 OHALF_ROWS = ("pfsqlf", "pfsqif", "pfcqlng", "pfcqnng", "pfsqrf", "pfsqsf",
               "pfcqrng", "pfcqsng", "pfplsl", "pfplsn")
+FOLDO_DROP = ("pfsqltur", "pfsqitur", "pfhpsl", "pfhpsn")
 
 _C_NAMES = (
     "ptsphy", "zqtmst", "RG", "RD", "RV", "RTT", "RETV", "RLSTT",
@@ -143,10 +169,12 @@ _ALT_FOLDED = {
     "c065_const6i": lambda c, e: 0.65 * e.rcl_const6i,
     "c065_const6s": lambda c, e: 0.65 * e.rcl_const6s,
 }
+# what only the unfolded output rows read (PFHPSL = -RLVTT x PFPLSL)
+_FOLDO_NAMES = ("RLVTT",)
 # The flat constants vector the kernel reads, one double each, in this
 # order; csrc/cloudsc_scheme.cuh declares the matching `enum Const`.
 CONST_NAMES = _C_NAMES + _THF_NAMES + _E_NAMES + tuple(_FOLDED) \
-    + _ALT_NAMES + tuple(_ALT_FOLDED)
+    + _ALT_NAMES + tuple(_ALT_FOLDED) + _FOLDO_NAMES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +206,10 @@ class KernelVersion:
     """What one build of K1 computes: SchemeConfig's four switches and the
     aerosol couplings, the pack's form (`fc`, `fn`, `fd`: its optional
     rows), the skipped sections (`skip`, a frozenset of scheme.SKIP_TAGS),
-    `dynamic_skips` and `s521_round_skip`. kernels/build.py passes it to
+    `dynamic_skips`, `s521_round_skip`, the input contract (`fold_inputs`:
+    the folded pack, or the unfolded one, which streams no optional row)
+    and the output rows (`fold_outputs`: the four derivable flux rows left
+    to `assemble`, or written by the kernel). kernels/build.py passes it to
     csrc/cloudsc_scheme.cuh as the CLOUDSC_* macros (one a skip tag), one
     library a version. The liquid couplings act only under IWARMRAIN=1, so
     `kernel_version` drops them elsewhere and such a configuration shares
@@ -198,6 +229,15 @@ class KernelVersion:
     skip: frozenset = frozenset()
     dynamic_skips: bool = True
     s521_round_skip: bool = False
+    fold_inputs: bool = True
+    fold_outputs: bool = True
+
+    def __post_init__(self):
+        if not self.fold_inputs and (self.fc or self.fn or self.fd):
+            raise ValueError(
+                "the unfolded pack streams no optional row: fold_inputs="
+                "False needs fc = fn = fd = False (the JAX kernel's gate "
+                "is `fold and fn`)")
 
     def macros(self) -> tuple:
         out = []
@@ -212,27 +252,49 @@ class KernelVersion:
 
 
 # the reference configuration (2, 2, 1, 1), no aerosol coupling, the main
-# path's form (the streamed ZDQS row alone), no skip
+# path's form (the folded pack with the streamed ZDQS row alone), the four
+# derivable flux rows left to `assemble`, no skip
 DEFAULT_VERSION = KernelVersion()
 
 
-def kernel_version(c, form=None) -> KernelVersion:
+def kernel_version(c, form=None, fold_outputs: bool = True) -> KernelVersion:
     """The build that computes `derived_consts` `c`'s configuration on a
-    pack of `form` ({"fc", "fn", "fd"} -> bool, `FoldedPack.form`; the
-    main path's, the streamed ZDQS row alone, if None)."""
+    pack of `form` ({"fold_inputs", "fc", "fn", "fd"} -> bool, each absent
+    at its default, `FoldedPack.form`; the main path's, the folded pack
+    with the streamed ZDQS row alone, if None), writing the four derivable
+    flux rows itself unless `fold_outputs`."""
     liq = c.IWARMRAIN == 1
     return KernelVersion(
         c.IWARMRAIN, c.IEVAPRAIN, c.IEVAPSNOW, c.IDEPICE, c.LAERICESED,
         c.LAERICEAUTO, liq and c.LAERLIQAUTOLSP, liq and c.LAERLIQCOLL,
         skip=frozenset(c.skip), dynamic_skips=bool(c.dynamic_skips),
-        s521_round_skip=bool(c.s521_round_skip), **(form or {}))
+        s521_round_skip=bool(c.s521_round_skip),
+        fold_outputs=bool(fold_outputs), **(form or {}))
 
 
 def fold_flags() -> dict:
-    """{"fc", "fn", "fd"} -> bool from CLOUDSC_FOLD_CURVES / _NEWTON / _DEP
-    (defaults 0 / 1 / 0, as the JAX package's readers)."""
-    return {k: os.environ.get(var, default) == "1"
-            for k, var, default in FOLD_ENV}
+    """{"fold_inputs", "fc", "fn", "fd"} -> bool from CLOUDSC_FOLD_INPUTS
+    / _CURVES / _NEWTON / _DEP (defaults 1 / 0 / 1 / 0, as the JAX
+    package's readers); with CLOUDSC_FOLD_INPUTS=0 the other three are off
+    whatever they say (pallas_cloudsc.fold_newton_enabled's `fold and`)."""
+    flags = {k: os.environ.get(var, default) == "1"
+             for k, var, default in FOLD_ENV}
+    if not flags["fold_inputs"]:
+        flags.update(fc=False, fn=False, fd=False)
+    return flags
+
+
+def fold_outputs_flag() -> bool:
+    """CLOUDSC_FOLD_OUTPUTS (default 1): the four derivable flux rows are
+    rebuilt in `assemble`; 0: the kernel writes them."""
+    var, default = FOLDO_ENV
+    return os.environ.get(var, default) == "1"
+
+
+def ohalf_rows(fold_outputs: bool = True) -> tuple:
+    """The half-level output buffer's rows: OHALF_ROWS, then FOLDO_DROP
+    where the kernel writes them (`fold_outputs=False`)."""
+    return OHALF_ROWS + (() if fold_outputs else FOLDO_DROP)
 
 
 def ring_schedule(nlev: int, stages: int) -> list[tuple]:
@@ -265,7 +327,7 @@ def ring_schedule(nlev: int, stages: int) -> list[tuple]:
 
 def const_values(c) -> dict:
     """CONST_NAMES -> value, from the port's `derived_consts`."""
-    v = {n: getattr(c, n) for n in _C_NAMES}
+    v = {n: getattr(c, n) for n in _C_NAMES + _FOLDO_NAMES}
     v.update({n: getattr(c.thf, n) for n in _THF_NAMES})
     v.update({n: getattr(c.e, n) for n in _E_NAMES + _ALT_NAMES})
     v.update({n: f(c, c.e) for n, f in {**_FOLDED, **_ALT_FOLDED}.items()})
@@ -294,10 +356,11 @@ def aer_rows(c) -> list[str]:
 
 @dataclasses.dataclass
 class FoldedPack:
-    """The folded input pack with its own layout: `pack (nlev+1, nrows,
-    ncol)`, `col (4, ncol)`, the row names and its form: whether it streams
-    the saturation-curve rows (`fc`), the ZDQS row (`fn`) and the
-    deposition rows (`fd`)."""
+    """The input pack with its own layout: `pack (nlev+1, nrows, ncol)`,
+    `col (4, ncol)`, the row names and its form: folded (`fold_inputs`) or
+    the unfolded rows (UNFOLDED_ROWS), and whether it streams the
+    saturation-curve rows (`fc`), the ZDQS row (`fn`) and the deposition
+    rows (`fd`), which only a folded pack does."""
 
     pack: torch.Tensor
     col: torch.Tensor
@@ -305,10 +368,16 @@ class FoldedPack:
     fn: bool
     fc: bool = False
     fd: bool = False
+    fold_inputs: bool = True
+
+    def __post_init__(self):
+        if not self.fold_inputs and (self.fc or self.fn or self.fd):
+            raise ValueError("an unfolded pack streams no optional row")
 
     @property
     def form(self) -> dict:
-        return {"fc": self.fc, "fn": self.fn, "fd": self.fd}
+        return {"fold_inputs": self.fold_inputs, "fc": self.fc,
+                "fn": self.fn, "fd": self.fd}
 
     @property
     def nlev(self) -> int:
@@ -327,9 +396,16 @@ class FoldedPack:
 
 
 def pack_rows(fc: bool = False, fn: bool = True, fd: bool = False,
-              aer=()) -> tuple:
-    """The pack's rows in pallas_cloudsc._pack_rows_f's order: PACK_ROWS,
-    the curve rows (fc), ZDQS (fn), the deposition rows (fd), then `aer`."""
+              aer=(), fold_inputs: bool = True) -> tuple:
+    """The pack's rows: folded, in pallas_cloudsc._pack_rows_f's order
+    (PACK_ROWS, the curve rows (fc), ZDQS (fn), the deposition rows (fd));
+    unfolded, UNFOLDED_ROWS (no optional row: fc = fn = fd = False); then
+    `aer`."""
+    if not fold_inputs:
+        if fc or fn or fd:
+            raise ValueError("the unfolded pack streams no optional row: "
+                             "fc = fn = fd = False")
+        return UNFOLDED_ROWS + tuple(aer)
     return PACK_ROWS + (CURVE_ROWS if fc else ()) \
         + ((ZDQS_ROW,) if fn else ()) + (DEP_ROWS if fd else ()) + tuple(aer)
 
@@ -409,6 +485,31 @@ def pack_expand(rows, ncol, nlev_rows, dtype,
     return dst
 
 
+def _layout(column_order: str, perm) -> bool:
+    """Whether `column_order` is grouped; refuses an unknown order and a
+    source permutation of the cyclic one."""
+    if column_order not in ("grouped", "cyclic"):
+        raise ValueError(f"column_order {column_order!r}: grouped or cyclic")
+    if perm is not None and column_order != "grouped":
+        raise ValueError("perm requires column_order='grouped'")
+    return column_order == "grouped"
+
+
+def _snapshot_getter(inp, perm):
+    """get(NAME[, species]) -> the snapshot's fp64 file-width array, source
+    columns permuted by `perm`."""
+    f = inp.fields
+
+    def get(name, m=None):
+        a = np.asarray(f[name] if m is None else f[name][m], np.float64)
+        return a if perm is None else a[..., perm]
+    return get
+
+
+def _col_rows(get, nlev: int) -> list:
+    return [get("PLSM"), get("LDCUM"), get("KTYPE"), get("PAPH")[nlev]]
+
+
 def pack_inputs_folded(inp, params, config=None, dtype=torch.float32,
                        perm=None, fn: bool = True,
                        column_order: str = "grouped", fc: bool = False,
@@ -420,40 +521,126 @@ def pack_inputs_folded(inp, params, config=None, dtype=torch.float32,
     once. The form: `fn` streams the ZDQS row (the main path; without it the
     kernel runs the in-line CUADJTQ), `fc` the saturation-curve rows, `fd`
     the deposition rows. Returns host tensors."""
-    if column_order not in ("grouped", "cyclic"):
-        raise ValueError(f"column_order {column_order!r}: grouped or cyclic")
-    grouped = column_order == "grouped"
-    if perm is not None and not grouped:
-        raise ValueError("perm requires column_order='grouped'")
-    f = inp.fields
+    grouped = _layout(column_order, perm)
     ncol, nlev = inp.ngptot, inp.klev
     c = scheme.derived_consts(params, float(inp.ptsphy), dtype, config)
-    aer = aer_rows(c)
-
-    def _p(a):
-        return a if perm is None else a[..., perm]
-
-    def get(name, m=None):
-        a = f[name] if m is None else f[name][m]
-        return _p(np.asarray(a, np.float64))
-
+    get = _snapshot_getter(inp, perm)
     fr = folded_rows(get, float(inp.ptsphy), c=c, fc=fc, fn=fn, fd=fd)
-    names = pack_rows(fc, fn, fd, aer)
+    names = pack_rows(fc, fn, fd, aer_rows(c))
     rows = [fr[n] if n in fr else get(n.upper()) for n in names]
-    col_rows = [get("PLSM"), get("LDCUM"), get("KTYPE"),
-                _p(np.asarray(f["PAPH"], np.float64)[nlev])]
     return FoldedPack(
         pack=pack_expand(rows, ncol, nlev + 1, dtype, grouped),
-        col=pack_expand(col_rows, ncol, 1, dtype, grouped).reshape(4, ncol),
+        col=pack_expand(_col_rows(get, nlev), ncol, 1, dtype,
+                        grouped).reshape(4, ncol),
         rows=names, fn=fn, fc=fc, fd=fd)
 
 
-def k1_bytes(p: FoldedPack) -> int:
+def _unfolded_source(name: str):
+    """An UNFOLDED_ROWS (or aerosol) row -> (field name, species or None)."""
+    if name.startswith("pclv"):
+        return "pclv", int(name[4:])
+    if name.startswith("tcld"):
+        return "tendency_tmp_cld", int(name[4:])
+    return name, None
+
+
+def pack_inputs_unfolded(inp, params, config=None, dtype=torch.float32,
+                         perm=None,
+                         column_order: str = "grouped") -> FoldedPack:
+    """The unfolded pack on the host from an unexpanded `InputData`
+    (pallas_cloudsc.pack_inputs_raw with fold=False): UNFOLDED_ROWS and the
+    configuration's aerosol rows, each cast to `dtype` at file width and
+    expanded as `pack_inputs_folded` expands, with no arithmetic. Returns
+    host tensors."""
+    grouped = _layout(column_order, perm)
+    ncol, nlev = inp.ngptot, inp.klev
+    c = scheme.derived_consts(params, float(inp.ptsphy), dtype, config)
+    get = _snapshot_getter(inp, perm)
+    names = pack_rows(fn=False, aer=aer_rows(c), fold_inputs=False)
+    rows = []
+    for n in names:
+        field, m = _unfolded_source(n)
+        rows.append(get(field.upper(), m))
+    return FoldedPack(
+        pack=pack_expand(rows, ncol, nlev + 1, dtype, grouped),
+        col=pack_expand(_col_rows(get, nlev), ncol, 1, dtype,
+                        grouped).reshape(4, ncol),
+        rows=names, fn=False, fold_inputs=False)
+
+
+def pack_inputs_raw(inp, params, config=None, dtype=torch.float32,
+                    perm=None, column_order: str = "grouped",
+                    fold_inputs: bool = True, fc: bool = False,
+                    fn: bool = True, fd: bool = False) -> FoldedPack:
+    """The host pack of form ({fold_inputs, fc, fn, fd}, `fold_flags`):
+    `pack_inputs_folded`, or `pack_inputs_unfolded` without fold_inputs
+    (where fc, fn and fd must be off)."""
+    if fold_inputs:
+        return pack_inputs_folded(inp, params, config, dtype, perm, fn,
+                                  column_order, fc, fd)
+    pack_rows(fc, fn, fd, fold_inputs=False)  # refuses the form rows
+    return pack_inputs_unfolded(inp, params, config, dtype, perm,
+                                column_order)
+
+
+def pack_inputs(fields: dict, params, config=None, ptsphy=None,
+                fold: bool = False) -> FoldedPack:
+    """The pack from an expanded plain field dict (`physics.cloudsc.
+    make_inputs`), on the fields' device (pallas_cloudsc.pack_inputs):
+    unfolded by default, whatever the environment says — the rows copied,
+    each per-level row with an edge-replicated row nlev, no arithmetic.
+    `fold=True` (needs `ptsphy`) folds at the fields' dtype, in the
+    environment's form (`fold_flags`: fc, fn, fd), the optional rows
+    computed in fp64 on the host from the fields as the JAX function
+    computes them."""
+    pt = fields["pt"]
+    dtype, dev = pt.dtype, pt.device
+    nlev, ncol = pt.shape
+    aer = aer_rows(scheme.derived_consts(params, 1.0, dtype, config))
+
+    def get(name, m=None):
+        a = fields[name.lower()]
+        return a if m is None else a[m]
+
+    if not fold:
+        names = pack_rows(fn=False, aer=aer, fold_inputs=False)
+        kw = dict(fn=False, fold_inputs=False)
+        rows = [get(*_unfolded_source(n)) for n in names]
+    else:
+        if ptsphy is None:
+            raise ValueError("a folded pack_inputs needs ptsphy")
+        form = fold_flags()
+        kw = {k: form[k] for k in ("fc", "fn", "fd")}
+        fr = folded_rows(get, float(ptsphy))
+        names = pack_rows(kw["fc"], kw["fn"], kw["fd"], aer)
+        if any(kw.values()):
+            # the optional rows in fp64 on the host, from the fields
+            c64 = scheme.derived_consts(params, float(ptsphy), torch.float64,
+                                        config)
+            f64 = folded_rows(
+                lambda name, m=None: get(name, m).double().cpu().numpy(),
+                float(ptsphy), c64, **kw)
+            fr.update({n: torch.from_numpy(f64[n]).to(dev, dtype)
+                       for n in names if n in f64 and n not in fr})
+        rows = [fr[n] if n in fr else fields[n] for n in names]
+    pack = pt.new_empty((nlev + 1, len(names), ncol))
+    for i, r in enumerate(rows):
+        pack[:r.shape[0], i] = r
+        if r.shape[0] == nlev:
+            pack[nlev, i] = r[nlev - 1]
+    col = torch.stack([fields["plsm"].to(dtype), fields["ldcum"].to(dtype),
+                       fields["ktype"].to(dtype), fields["paph"][nlev]])
+    return FoldedPack(pack=pack, col=col, rows=names, **kw)
+
+
+def k1_bytes(p: FoldedPack, fold_outputs: bool = True) -> int:
     """Modeled bytes K1 must move on pack `p`: the pack (every row of its
-    form) and col in, the three output buffers out, each once."""
+    form, folded or not) and col in, the three output buffers (the half
+    levels' with the four derivable rows unless `fold_outputs`) out, each
+    once."""
     return (p.pack.numel() + p.col.numel()
             + p.nlev * len(OLEV_ROWS) * p.ncol
-            + (p.nlev + 1) * len(OHALF_ROWS) * p.ncol
+            + (p.nlev + 1) * len(ohalf_rows(fold_outputs)) * p.ncol
             + p.ncol) * p.pack.element_size()
 
 
@@ -483,12 +670,13 @@ def check_kernel_args(p: FoldedPack, c) -> None:
     configuration `check_kernel_config` refuses, a pack whose rows are not
     its form's `pack_rows` (the version's aerosol rows included), a dtype
     other than fp32/fp64, a non-contiguous or mis-shaped buffer, or a
-    tensor that is not on a CUDA device. Every form (fc, fn, fd) is
-    taken."""
+    tensor that is not on a CUDA device. Every form (fold_inputs, fc, fn,
+    fd) is taken."""
     check_kernel_config(c)
-    if tuple(p.rows) != pack_rows(p.fc, p.fn, p.fd, aer_rows(c)):
+    if tuple(p.rows) != pack_rows(p.fc, p.fn, p.fd, aer_rows(c),
+                                  p.fold_inputs):
         raise ValueError(f"unknown pack layout {p.rows} for the form "
-                         f"fc={p.fc}, fn={p.fn}, fd={p.fd}")
+                         f"{p.form}")
     if p.pack.dtype not in (torch.float32, torch.float64) \
             or p.col.dtype != p.pack.dtype or c.dtype != p.pack.dtype:
         raise ValueError(f"pack {p.pack.dtype}, col {p.col.dtype} and "
@@ -517,30 +705,32 @@ def refuse_grad(*tensors) -> None:
 
 
 def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
-                  mode: str = "full", lib=None):
-    """One CLOUDSC step on the folded pack -> (o_lev (nlev, 9, ncol),
-    o_half (nlev+1, 10, ncol), o_prainfrac (ncol,)) on the pack's device.
-    `mode` "floor" or "init" runs the diagnostic body instead of the
-    physics. A CUDA pack launches the kernel (or raises); a CPU pack runs
-    the plain version. `lib` is a library from `build.load_library` (if
-    None, the build of `c`'s configuration on `p`'s form,
-    `kernel_version(c, p.form)`). An input that requires grad is refused on
-    either device (`refuse_grad`)."""
+                  mode: str = "full", lib=None, fold_outputs: bool = True):
+    """One CLOUDSC step on the pack -> (o_lev (nlev, 9, ncol), o_half
+    (nlev+1, 10 or 14 (`ohalf_rows(fold_outputs)`), ncol), o_prainfrac
+    (ncol,)) on the pack's device. `mode` "floor" or "init" runs the
+    diagnostic body instead of the physics. A CUDA pack launches the kernel
+    (or raises); a CPU pack runs the plain version. `lib` is a library from
+    `build.load_library` (if None, the build of `c`'s configuration on
+    `p`'s form and the output rows, `kernel_version(c, p.form,
+    fold_outputs)`). An input that requires grad is refused on either
+    device (`refuse_grad`)."""
     global LAUNCHES, FLOOR_LAUNCHES, INIT_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
     refuse_grad(p.pack, p.col, consts)
     if p.pack.device.type == "cpu":
         if mode == "floor":
-            return cloudsc_floor_plain(p)
+            return cloudsc_floor_plain(p, fold_outputs)
         if mode == "init":
-            return cloudsc_init_plain(p, c)
-        return cloudsc_fused_plain(p, c)
+            return cloudsc_init_plain(p, c, fold_outputs)
+        return cloudsc_fused_plain(p, c, fold_outputs)
     check_kernel_args(p, c)
+    version = kernel_version(c, p.form, fold_outputs)
     if lib is None:
         from . import build
 
-        lib = build.load_library(version=kernel_version(c, p.form))
+        lib = build.load_library(version=version)
     if consts is None:
         consts = const_vector(c, p.pack.device)
     if consts.dtype != torch.float64 or consts.device != p.pack.device \
@@ -548,7 +738,8 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
         raise ValueError("consts must be const_vector(c) on the pack's device")
     nlev, ncol, nrows = p.nlev, p.ncol, len(p.rows)
     o_lev = p.pack.new_empty((nlev, len(OLEV_ROWS), ncol))
-    o_half = p.pack.new_empty((nlev + 1, len(OHALF_ROWS), ncol))
+    o_half = p.pack.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)),
+                               ncol))
     o_prainfrac = p.pack.new_empty((ncol,))
     t = "f32" if p.pack.dtype == torch.float32 else "f64"
     fn = getattr(lib, f"cloudsc_{_BODIES[mode]}_{t}")
@@ -563,7 +754,7 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
         INIT_LAUNCHES += 1
     else:
         LAUNCHES += 1
-        VERSION_LAUNCHES[kernel_version(c, p.form)] += 1
+        VERSION_LAUNCHES[version] += 1
     if rc != 0:
         raise RuntimeError(f"cloudsc_fused ({mode}) launch failed: CUDA "
                            f"error {rc}")
@@ -595,16 +786,40 @@ def occupancy(dtype, lib=None) -> dict:
     return dict(zip(OCCUPANCY_KEYS, out))
 
 
-def cloudsc_fused_plain(p: FoldedPack, c):
+def _state_raw(get, p: FoldedPack) -> dict:
+    """Section 1's inputs (`scheme.level_init`'s `raw`) through `get(row)`:
+    the folded contract (ztp1_in, zqv_in, za_in, zqx_cld_in, and the curve
+    rows of the fc form), or the unfolded one (pt, pq, pa, the tendencies,
+    pclv), whose x + PTSPHY*tend level_init forms at working precision."""
+    if p.fold_inputs:
+        raw = {n: get(n) for n in ("ztp1_in", "zqv_in", "za_in", "pap")
+               + (CURVE_ROWS if p.fc else ())}
+        raw["zqx_cld_in"] = [get(f"zqx{m}_in") for m in range(4)]
+        return raw
+    raw = {n: get(n) for n in ("pt", "pq", "pa", "pap", "tendency_tmp_t",
+                               "tendency_tmp_q", "tendency_tmp_a")}
+    raw["pclv"] = [get(f"pclv{m}") for m in range(4)]
+    raw["tendency_tmp_cld"] = [get(f"tcld{m}") for m in range(4)]
+    return raw
+
+
+def _pmf(get, p: FoldedPack):
+    """PMFU+PMFD through `get(row)`: the folded row, or the sum at working
+    precision (pallas_cloudsc._sub_level's `raw["pmfu"] + raw["pmfd"]`)."""
+    return get("pmf") if p.fold_inputs else get("pmfu") + get("pmfd")
+
+
+def cloudsc_fused_plain(p: FoldedPack, c, fold_outputs: bool = True):
     """The plain PyTorch version of the kernel: the level loop of the Pallas
     `_kernel` / `_sub_level` / `_write_level_rows` (pallas_cloudsc.py:474-742)
-    over `(ncol,)` rows, calling `scheme.level_init` / `level_step`. Runs on
-    whatever device the pack is on."""
+    over `(ncol,)` rows, calling `scheme.level_init` / `level_step`, on a
+    folded or an unfolded pack; without `fold_outputs` it also writes the
+    four derivable flux rows (PFSQLTUR/ITUR as running sums, PFHPSL/N from
+    PFPLSL/N). Runs on whatever device the pack is on."""
     pack, col = p.pack, p.col
     nlev, ncol = p.nlev, p.ncol
     ridx = {name: i for i, name in enumerate(p.rows)}
-    aer = [n for n in p.rows if n not in pack_rows(p.fc, p.fn, p.fd)]
-    curves = CURVE_ROWS if p.fc else ()
+    aer = p.rows[len(pack_rows(p.fc, p.fn, p.fd, (), p.fold_inputs)):]
     ktop = c.NCLDTOP - 1
     zqtmst, ptsphy = c.zqtmst, c.ptsphy
     dev = pack.device
@@ -613,11 +828,11 @@ def cloudsc_fused_plain(p: FoldedPack, c):
         return pack[k, ridx[name]]
 
     o_lev = pack.new_empty((nlev, len(OLEV_ROWS), ncol))
-    o_half = pack.new_empty((nlev + 1, len(OHALF_ROWS), ncol))
+    o_half = pack.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)), ncol))
     zero = pack.new_zeros((ncol,))
     carry = scheme.initial_carry(zero, c)
     ztp1_prev = za_prev = pap_prev = zero
-    a_lf = a_if = a_lng = a_nng = zero
+    a_lf = a_if = a_lng = a_nng = a_ltur = a_itur = zero
     alf_prev = aif_prev = alng_prev = anng_prev = zero
     rain_prev = snow_prev = lnegr_prev = lnegs_prev = zero
     plsm, ldcum, ktype, paph_surf = col[0], col[1] > 0.5, \
@@ -628,19 +843,23 @@ def cloudsc_fused_plain(p: FoldedPack, c):
         # (ref: 2788-2867); rain/snow accumulate onto the liquid/ice flux of
         # the level above (ref: 2818-2819)
         pf = carry["pfplsx"]
-        o_half[k] = torch.stack([
-            a_lf, a_if, a_lng, a_nng,
-            alf_prev + rain_prev, aif_prev + snow_prev,
-            alng_prev + lnegr_prev, anng_prev + lnegs_prev,
-            pf[IR] + pf[IL], pf[IS] + pf[II],
-        ])
+        pfplsl, pfplsn = pf[IR] + pf[IL], pf[IS] + pf[II]
+        half = [a_lf, a_if, a_lng, a_nng,
+                alf_prev + rain_prev, aif_prev + snow_prev,
+                alng_prev + lnegr_prev, anng_prev + lnegs_prev,
+                pfplsl, pfplsn]
+        if not fold_outputs:
+            half += [a_ltur, a_itur, -c.RLVTT * pfplsl, -c.RLSTT * pfplsn]
+        o_half[k] = torch.stack(half)
         if k == nlev:
             break
-        raw = {n: P(k, n) for n in ("ztp1_in", "zqv_in", "za_in", "pap",
-                                     "pvervel", "zhr", "plude", "psnde",
-                                     "psupsat", "pvfl", "pvfi", "pmf")}
-        raw["zqx_cld_in"] = [P(k, f"zqx{m}_in") for m in range(4)]
-        raw.update({n: P(k, n) for n in curves})
+
+        def get(name):
+            return P(k, name)
+
+        raw = _state_raw(get, p)
+        raw.update({n: get(n) for n in ("pvervel", "plude", "psnde",
+                                         "psupsat", "pvfl", "pvfi")})
         ini = scheme.level_init(raw, c)
         paph_k, paph_k1 = P(k, "paph"), P(k + 1, "paph")
         if k < ktop:
@@ -663,9 +882,12 @@ def cloudsc_fused_plain(p: FoldedPack, c):
                 ztp1_prev=ztp1_prev, za_prev=za_prev,
                 pap=raw["pap"], pap_prev=pap_prev,
                 paph=paph_k, paph_next=paph_k1, paph_surf=paph_surf,
-                pmf=raw["pmf"], pmf_next=P(k + 1, "pmf"),
+                pmf=_pmf(get, p),
+                pmf_next=_pmf(lambda n: P(k + 1, n), p),
                 plu_next=P(k + 1, "plu"),
-                pvervel=raw["pvervel"], zhr=raw["zhr"],
+                pvervel=raw["pvervel"],
+                zhr=get("zhr") if p.fold_inputs
+                else get("phrsw") + get("phrlw"),
                 plude_in=raw["plude"], psnde=raw["psnde"],
                 psupsat=raw["psupsat"],
                 land=plsm > 0.5, ldcum=ldcum, ktype=ktype,
@@ -706,71 +928,89 @@ def cloudsc_fused_plain(p: FoldedPack, c):
         a_if = a_if + ice_inc
         a_lng = a_lng + zlneg[IL] * zgdph_r
         a_nng = a_nng + zlneg[II] * zgdph_r
+        if not fold_outputs:
+            # the input-only running sums (foldo_synthesize's recurrence)
+            a_ltur = a_ltur + raw["pvfl"] * ptsphy * zgdph_r
+            a_itur = a_itur + raw["pvfi"] * ptsphy * zgdph_r
 
     return o_lev, o_half, carry["prainfrac"].clone()
 
 
-def _diagnostic_outputs(v: torch.Tensor, nlev: int):
+def _diagnostic_outputs(v: torch.Tensor, nlev: int,
+                        fold_outputs: bool = True):
     """A diagnostic body's three buffers from its per-level value v
     (nlev+1, ncol): every row of level k holds v[k]; o_prainfrac holds the
     last level's, v[nlev] (pallas_cloudsc.py:489-509)."""
     o_lev = v[:nlev, None].expand(-1, len(OLEV_ROWS), -1).contiguous()
-    o_half = v[:, None].expand(-1, len(OHALF_ROWS), -1).contiguous()
+    o_half = v[:, None].expand(-1, len(ohalf_rows(fold_outputs)),
+                               -1).contiguous()
     return o_lev, o_half, v[nlev].clone()
 
 
-def cloudsc_floor_plain(p: FoldedPack):
-    """Plain version of the `floor` body: ztp1_in + zqv_in of level k in
-    every output row of level k."""
-    v = p.pack[:, p.row("ztp1_in")] + p.pack[:, p.row("zqv_in")]
-    return _diagnostic_outputs(v, p.nlev)
+def cloudsc_floor_plain(p: FoldedPack, fold_outputs: bool = True):
+    """Plain version of the `floor` body: ztp1_in + zqv_in (pt + pq on an
+    unfolded pack) of level k in every output row of level k."""
+    a, b = ("ztp1_in", "zqv_in") if p.fold_inputs else ("pt", "pq")
+    v = p.pack[:, p.row(a)] + p.pack[:, p.row(b)]
+    return _diagnostic_outputs(v, p.nlev, fold_outputs)
 
 
-def cloudsc_init_plain(p: FoldedPack, c):
+def cloudsc_init_plain(p: FoldedPack, c, fold_outputs: bool = True):
     """Plain version of the `init` body: section 1 (`scheme.level_init`,
     elementwise, here over all levels at once) and ztp1 + zqsmix + zfokoop +
     zli in every output row of level k."""
-    raw = {n: p.pack[:, p.row(n)] for n in ("ztp1_in", "zqv_in", "za_in",
-                                             "pap")
-           + (CURVE_ROWS if p.fc else ())}
-    raw["zqx_cld_in"] = [p.pack[:, p.row(f"zqx{m}_in")] for m in range(4)]
-    ini = scheme.level_init(raw, c)
+    ini = scheme.level_init(_state_raw(lambda n: p.pack[:, p.row(n)], p), c)
     v = ini["ztp1"] + ini["zqsmix"] + ini["zfokoop"] + ini["zli"]
-    return _diagnostic_outputs(v, p.nlev)
+    return _diagnostic_outputs(v, p.nlev, fold_outputs)
 
 
 # ---------------------------------------------------------------------------
 # outputs
 # ---------------------------------------------------------------------------
 
-def foldo_synthesize(half: dict, p: FoldedPack, c) -> None:
+def _flux_inputs(src):
+    """(paph (nlev+1, ncol), pvfl (nlev, ncol), pvfi (nlev, ncol)) of a
+    pack or a plain field dict."""
+    if isinstance(src, FoldedPack):
+        nlev = src.nlev
+        return (src.pack[:, src.row("paph")], src.pack[:nlev, src.row("pvfl")],
+                src.pack[:nlev, src.row("pvfi")])
+    return src["paph"], src["pvfl"], src["pvfi"]
+
+
+def foldo_synthesize(half: dict, src, c) -> None:
     """Rebuild the four folded-out flux rows (pallas_cloudsc.
-    _foldo_synthesize): PFHPSL/N = -RLVTT/RLSTT x PFPLSL/N (ref: cloudsc.F90:
-    2864-2865); PFSQLTUR/ITUR the running sums of PVFL/PVFI*PTSPHY*ZGDPH_R
-    (ref: 2812-2857), added level by level in order — `torch.cumsum`'s
-    parallel scan would reorder the additions."""
-    nlev = p.nlev
+    _foldo_synthesize) from `src`, the step's pack or field dict:
+    PFHPSL/N = -RLVTT/RLSTT x PFPLSL/N (ref: cloudsc.F90: 2864-2865);
+    PFSQLTUR/ITUR the running sums of PVFL/PVFI*PTSPHY*ZGDPH_R (ref:
+    2812-2857), added level by level in order — `torch.cumsum`'s parallel
+    scan would reorder the additions."""
     half["pfhpsl"] = -c.RLVTT * half["pfplsl"]
     half["pfhpsn"] = -c.RLSTT * half["pfplsn"]
-    paph = p.pack[:, p.row("paph")]
+    paph, pvfl, pvfi = _flux_inputs(src)
     zgdph_r = -c.zrg_r * (paph[1:] - paph[:-1]) * c.zqtmst
-    for name, row in (("pfsqltur", "pvfl"), ("pfsqitur", "pvfi")):
-        term = p.pack[:nlev, p.row(row)] * c.ptsphy * zgdph_r
+    for name, rows in (("pfsqltur", pvfl), ("pfsqitur", pvfi)):
+        term = rows * c.ptsphy * zgdph_r
         out = torch.zeros_like(paph)
         acc = out[0]
-        for k in range(nlev):
+        for k in range(paph.shape[0] - 1):
             acc = acc + term[k]
             out[k + 1] = acc
         half[name] = out
 
 
-def assemble(res, p: FoldedPack, c) -> CloudscOutputs:
+def assemble(res, src, c, fold_outputs: bool = True) -> CloudscOutputs:
     """The packed output buffers -> CloudscOutputs (pallas_cloudsc._assemble),
-    on the buffers' device."""
+    on the buffers' device. The four derivable flux rows are rebuilt from
+    `src` (the step's pack or field dict, `foldo_synthesize`) where the
+    build left them out (`fold_outputs`), and read from the buffer where it
+    wrote them."""
     o_lev, o_half, o_prainfrac = res
     lev = {name: o_lev[:, j] for j, name in enumerate(OLEV_ROWS)}
-    half = {name: o_half[:, j] for j, name in enumerate(OHALF_ROWS)}
-    foldo_synthesize(half, p, c)
+    half = {name: o_half[:, j]
+            for j, name in enumerate(ohalf_rows(fold_outputs))}
+    if fold_outputs:
+        foldo_synthesize(half, src, c)
     tcld = torch.stack([lev[f"tcld{m}"] for m in range(4)]
                        + [torch.zeros_like(lev["tcld0"])])
     return CloudscOutputs(
@@ -790,15 +1030,48 @@ def assemble(res, p: FoldedPack, c) -> CloudscOutputs:
 
 class FusedStep(torch.nn.Module):
     """The step with its constants held as a buffer: `derived_consts` for
-    the working dtype and the kernel's flat constants vector. On the card
-    it launches the build of its own scheme version (`kernel_version`)."""
+    the working dtype and the kernel's flat constants vector. It takes a
+    pack, or a plain field dict, which it packs on the fields' device
+    (`pack_inputs`, unfolded) each call, and returns the raw buffers
+    (`assemble` takes the same pack or dict). On the card it launches the
+    build of its own scheme version, the pack's form and its output rows
+    (`kernel_version`)."""
 
-    def __init__(self, params, ptsphy: float, dtype, config=None):
+    def __init__(self, params, ptsphy: float, dtype, config=None,
+                 fold_outputs: bool = True):
         super().__init__()
+        self.params, self.ptsphy, self.config = params, ptsphy, config
+        self.fold_outputs = fold_outputs
         self.c = scheme.derived_consts(params, ptsphy, dtype, config)
         self.register_buffer("consts", const_vector(self.c), persistent=False)
+        self._copies = {}
 
-    def forward(self, p: FoldedPack):
-        consts = self.consts if p.pack.is_cuda else None
-        return cloudsc_fused(p, self.c, consts)
+    def consts_on(self, dev) -> torch.Tensor:
+        """The constants vector on `dev`: the buffer, or a copy made once
+        for another device (the shares of a mesh)."""
+        if dev == self.consts.device:
+            return self.consts
+        c = self._copies.get(dev)
+        if c is None:
+            c = self._copies[dev] = const_vector(self.c, dev)
+        return c
 
+    def forward(self, x):
+        p = x if isinstance(x, FoldedPack) else pack_inputs(
+            x, self.params, self.config, self.ptsphy)
+        return cloudsc_fused(p, self.c, self.consts_on(p.pack.device),
+                             fold_outputs=self.fold_outputs)
+
+
+def cloudsc_fused_fields(fields: dict, params, ptsphy, config=None,
+                         fold_outputs: bool | None = None) -> CloudscOutputs:
+    """The per-field entry (pallas_cloudsc.cloudsc_pallas on a field dict):
+    one step over a plain `make_inputs` field dict, on the fields' device —
+    the `physics.cloudsc` contract. It copies the fields into the unfolded
+    pack there (`pack_inputs`; no arithmetic, no host fold) and launches
+    the unfolded build; on the CPU it runs the plain version.
+    `fold_outputs` (default: CLOUDSC_FOLD_OUTPUTS) leaves the four
+    derivable flux rows to `assemble`."""
+    fo = fold_outputs_flag() if fold_outputs is None else fold_outputs
+    step = FusedStep(params, ptsphy, fields["pt"].dtype, config, fo)
+    return assemble(step.to(fields["pt"].device)(fields), fields, step.c, fo)

@@ -3,8 +3,10 @@
 Counterpart of `cloudsc_tpu/physics/cloudsc.py`: `CloudscOutputs` (the same
 21 fields in the same order and shapes, columns on the trailing axis),
 `make_inputs` (an `InputData` -> the field dict, plain or folded, on host
-tensors) and `cloudsc` (one step over every column of a field dict). The
-engine is the JAX module's without its XLA schedule choices (the packed
+tensors), `scan_pack` (the field dict's level-loop rows stacked once into
+three buffers, the JAX module's pre-packed closure) and `cloudsc` (one
+step over every column of a field dict or of `scan_pack`'s). The engine is
+the JAX module's without its XLA schedule choices (the in-step packed
 closure, the scan unroll): section 1 (`scheme.level_init`) over all levels
 at once, a Python loop over the levels from NCLDTOP down calling
 `scheme.level_step` on per-level views, then the full-level assembly and
@@ -174,19 +176,46 @@ def fields_on_device(inp, dtype, device) -> dict:
             for k, v in narrow.items()}
 
 
-def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
-    """One CLOUDSC step over every column of a `make_inputs` field dict
-    (plain or folded), on the fields' device. `config` selects the scheme
-    version (scheme.SchemeConfig; the reference configuration if None).
-    Every operation is a torch operation on the fields, so the step
-    differentiates in reverse and forward mode with respect to any float
-    field, and to `ptsphy` or a float of `params` given as a tensor
-    (`scheme.derived_consts`; `physics.autodiff` holds the entry points)."""
+# The pre-packed scan's three stacks (the JAX module's _SCAN_*_ROWS): P, the
+# rows also read at level k-1; H, the rows also read at level k+1 (padded to
+# nlev+1 levels); S, the rows read at level k alone (`_scan_s_rows`), then
+# the condensates after section 1
+_SCAN_P_ROWS = ("ztp1", "za", "pap")
+_SCAN_H_ROWS = ("paph", "pmf", "plu")
+_SCAN_CLOSURE_NAMES = (
+    "ztp1", "za", "zaorig", "zqsmix", "zqsliq", "zqsice", "zfoeew",
+    "zfoeewmt", "zfoeeliqt", "zfoealfa", "zli", "zliqfrac", "zicefrac",
+    "zfoeeliq", "zfoeeice", "zfokoop", "pap", "paph", "pmf", "zhr",
+    "pvervel", "plude_in", "plu", "psnde", "psupsat", "tend_t_pre",
+    "tend_q_pre", "pre_ice", "picrit_aer", "pnice", "plcrit_aer", "pccn",
+)
+
+
+def _aer_read(c) -> list:
+    """The aerosol fields the configuration's couplings read."""
+    return [n for n, on in (("pre_ice", c.LAERICESED),
+                            ("picrit_aer", c.LAERICEAUTO),
+                            ("pnice", c.LAERICEAUTO),
+                            ("plcrit_aer", c.LAERLIQAUTOLSP or c.LAERLIQCOLL),
+                            ("pccn", c.LAERLIQAUTOLSP or c.LAERLIQCOLL))
+            if on]
+
+
+def _scan_s_rows(c) -> list:
+    """The S stack's rows: the level loop's rows read at level k alone (the
+    aerosol rows only where a coupling reads them), then zqx0..zqx4."""
+    unread = {n for n, _ in _AEROSOL} - set(_aer_read(c))
+    return [n for n in _SCAN_CLOSURE_NAMES
+            if n not in _SCAN_P_ROWS + _SCAN_H_ROWS and n not in unread] + \
+        [f"zqx{m}" for m in range(NCLV)]
+
+
+def _front(fields: dict, params, ptsphy, config):
+    """Section 1 over every level at once and the level loop's full-level
+    rows -> (c, ini, rows)."""
     folded = "ztp1_in" in fields
     pt = fields["ztp1_in"] if folded else fields["pt"]
-    dtype, dev = pt.dtype, pt.device
-    nlev, ncol = pt.shape
-    c = scheme.derived_consts(params, ptsphy, dtype, config)
+    c = scheme.derived_consts(params, ptsphy, pt.dtype, config)
 
     # ==================================================================
     # 1. INITIAL VALUES (ref: 654-808), every level at once
@@ -221,42 +250,122 @@ def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
         zhr=fields["zhr"] if folded else fields["phrsw"] + fields["phrlw"],
         pvervel=fields["pvervel"], plude_in=fields["plude"],
         plu=fields["plu"], psnde=fields["psnde"], psupsat=fields["psupsat"])
-    aer = [n for n, on in (("pre_ice", c.LAERICESED),
-                           ("picrit_aer", c.LAERICEAUTO),
-                           ("pnice", c.LAERICEAUTO),
-                           ("plcrit_aer", c.LAERLIQAUTOLSP or c.LAERLIQCOLL),
-                           ("pccn", c.LAERLIQAUTOLSP or c.LAERLIQCOLL)) if on]
-    for n in aer:
+    for n in _aer_read(c):
         rows[n] = fields[n]
     for n in ("zdqs",) + satfold.DEP_ROWS:
         if n in fields:
             rows[n] = fields[n]
-    paph_surf = fields["paph"][nlev]
-    land = fields["plsm"] > 0.5
+    return c, ini, rows
+
+
+def scan_pack(fields: dict, params, ptsphy, config=None) -> dict:
+    """The scan engine's pre-packed closure (the JAX module's scan_pack,
+    CLOUDSC_SCAN_PACKED=1): sections 0-1 run here, once, and the level
+    loop's rows go into three stacks — S (nlev, R, ncol), the rows read at
+    level k alone and the condensates; P (nlev, 3, ncol), the rows also read
+    at k-1; H (nlev+1, 3, ncol), the rows also read at k+1 — so that
+    `cloudsc`, which takes the returned dict (detected by its "stack_s"
+    key), cuts five slices a level. The same operations on the same values
+    as the plain dict: bit for bit its outputs. Pass `cloudsc` the same
+    `config` (the S stack's aerosol rows follow it). A folded-curve, Newton
+    or deposition dict is refused: the stacks have no rows for it. The JAX
+    dict's all-zero `dep` entry (its chained timing loop's data dependency)
+    has no counterpart: the port's driver does not chain."""
+    if any(n in fields for n in ("zqsmix", "zdqs") + satfold.DEP_ROWS):
+        raise ValueError("scan_pack does not take folded-curve, Newton or "
+                         "deposition field dicts (the stacks have no rows "
+                         "for them)")
+    c, ini, rows = _front(fields, params, ptsphy, config)
+    nlev = rows["ztp1"].shape[0]
+    s_rows = _scan_s_rows(c)
+    stack_s = torch.stack([rows[n] for n in s_rows[:-NCLV]] + ini["zqx"],
+                          dim=1)
+    stack_p = torch.stack([rows[n] for n in _SCAN_P_ROWS], dim=1)
+    stack_h = torch.stack(
+        [v if v.shape[0] == nlev + 1 else torch.cat([v, v[-1:]])
+         for v in (rows[n] for n in _SCAN_H_ROWS)], dim=1)
+    return dict(stack_s=stack_s, stack_p=stack_p, stack_h=stack_h,
+                zqx0=torch.stack(ini["zqx0"]), zlneg=torch.stack(ini["zlneg"]),
+                pvfl=fields["pvfl"], pvfi=fields["pvfi"],
+                land=fields["plsm"] > 0.5, ldcum=fields["ldcum"],
+                ktype=fields["ktype"])
+
+
+def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
+    """One CLOUDSC step over every column of a `make_inputs` field dict
+    (plain or folded), or of `scan_pack`'s pre-packed dict, on the fields'
+    device. `config` selects the scheme version (scheme.SchemeConfig; the
+    reference configuration if None). Every operation is a torch operation
+    on the fields, so the step differentiates in reverse and forward mode
+    with respect to any float field, and to `ptsphy` or a float of `params`
+    given as a tensor (`scheme.derived_consts`; `physics.autodiff` holds
+    the entry points)."""
+    if "stack_s" in fields:
+        stack_s, stack_p, stack_h = (fields["stack_s"], fields["stack_p"],
+                                     fields["stack_h"])
+        nlev, _, ncol = stack_s.shape
+        dev = stack_s.device
+        c = scheme.derived_consts(params, ptsphy, stack_s.dtype, config)
+        s_idx = {n: i for i, n in enumerate(_scan_s_rows(c))}
+        zqx0, zlneg = list(fields["zqx0"]), list(fields["zlneg"])
+        zfoealfa = stack_s[:, s_idx["zfoealfa"]]
+        tend_t_pre = stack_s[:, s_idx["tend_t_pre"]]
+        tend_q_pre = stack_s[:, s_idx["tend_q_pre"]]
+        plude_in = stack_s[:, s_idx["plude_in"]]
+        paph = stack_h[:, 0]
+        land, ldcum, ktype = fields["land"], fields["ldcum"], fields["ktype"]
+        p_idx = {n: i for i, n in enumerate(_SCAN_P_ROWS)}
+        h_idx = {n: i for i, n in enumerate(_SCAN_H_ROWS)}
+    else:
+        c, ini, rows = _front(fields, params, ptsphy, config)
+        nlev, ncol = rows["ztp1"].shape
+        dev = rows["ztp1"].device
+        zqx0, zlneg, zfoealfa = ini["zqx0"], ini["zlneg"], ini["zfoealfa"]
+        tend_t_pre, tend_q_pre = ini["tend_t_pre"], ini["tend_q_pre"]
+        plude_in, paph = fields["plude"], fields["paph"]
+        land, ldcum, ktype = fields["plsm"] > 0.5, fields["ldcum"], \
+            fields["ktype"]
+    pvfl, pvfi = fields["pvfl"], fields["pvfi"]
+    paph_surf = paph[nlev]
     ktop = c.NCLDTOP - 1           # 0-based first level of the loop
     zqtmst = c.zqtmst
 
     # the two level flags as device scalars, made once
     flag = {b: torch.tensor(b, device=dev) for b in (False, True)}
 
+    def clamp(k, n):
+        return min(max(k, 0), n - 1)
+
     def make_x(k):
         """Level k's view: rows at k, and at k-1 / k+1 where the scheme
         reads them, the index clamped to the array as the JAX scan's
         dynamic slices clamp it (every such read is masked by not_first /
-        not_last)."""
-        def row(name, off=0):
-            a = rows[name]
-            return a[min(max(k + off, 0), a.shape[0] - 1)]
+        not_last). The pre-packed dict: five slices of its stacks."""
+        if "stack_s" in fields:
+            sk, pk = stack_s[k], stack_p[k]
+            pkm = stack_p[clamp(k - 1, nlev)]
+            hk, hkp = stack_h[k], stack_h[clamp(k + 1, nlev + 1)]
+            x = {n: sk[i] for n, i in s_idx.items()}
+            x.update({n: pk[i] for n, i in p_idx.items()})
+            x.update({n: hk[i] for n, i in h_idx.items()})
+            x.update(ztp1_prev=pkm[p_idx["ztp1"]], za_prev=pkm[p_idx["za"]],
+                     pap_prev=pkm[p_idx["pap"]],
+                     paph_next=hkp[h_idx["paph"]],
+                     pmf_next=hkp[h_idx["pmf"]], plu_next=hkp[h_idx["plu"]],
+                     zqx=[sk[s_idx[f"zqx{m}"]] for m in range(NCLV)])
+        else:
+            def row(name, off=0):
+                a = rows[name]
+                return a[clamp(k + off, a.shape[0])]
 
-        x = {name: row(name) for name in rows}
-        x.update(
-            ztp1_prev=row("ztp1", -1), za_prev=row("za", -1),
-            pap_prev=row("pap", -1), paph_next=row("paph", 1),
-            pmf_next=row("pmf", 1), plu_next=row("plu", 1),
-            zqx=[ini["zqx"][m][k] for m in range(NCLV)],
-            paph_surf=paph_surf, land=land, ldcum=fields["ldcum"],
-            ktype=fields["ktype"],
-            not_first=flag[k > ktop], not_last=flag[k < nlev - 1])
+            x = {name: row(name) for name in rows}
+            x.update(
+                ztp1_prev=row("ztp1", -1), za_prev=row("za", -1),
+                pap_prev=row("pap", -1), paph_next=row("paph", 1),
+                pmf_next=row("pmf", 1), plu_next=row("plu", 1),
+                zqx=[ini["zqx"][m][k] for m in range(NCLV)])
+        x.update(paph_surf=paph_surf, land=land, ldcum=ldcum, ktype=ktype,
+                 not_first=flag[k > ktop], not_last=flag[k < nlev - 1])
         return x
 
     # ==================================================================
@@ -265,12 +374,12 @@ def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
     # value), with no write into an existing array: reverse and forward
     # mode then see one stack a field, not a chain of slice updates.
     # ==================================================================
-    zero_row = pt.new_zeros((ncol,))
+    zero_row = paph.new_zeros((ncol,))
     ys_rows = {n: [] for n in ("plude", "pcovptot", "tend_t", "tend_q",
                                "tend_a")}
     zqxn_rows = [[] for _ in range(NCLV)]
     pfplsx_rows = [[] for _ in range(NCLV)]
-    carry = scheme.initial_carry(ini["ztp1"][0], c)
+    carry = scheme.initial_carry(zero_row, c)
     for k in range(ktop, nlev):
         carry, ys = scheme.level_step(make_x(k), carry, c)
         for n, acc in ys_rows.items():
@@ -289,13 +398,12 @@ def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
     zqxn = [levels(zqxn_rows[m], ktop) for m in range(NCLV)]
     # half level k+1 receives level k's flux (ref: 687, 2698-2702)
     zpfplsx = [levels(pfplsx_rows[m], ktop + 1) for m in range(NCLV)]
-    plude = levels(ys_rows["plude"], fields["plude"][:ktop])
+    plude = levels(ys_rows["plude"], plude_in[:ktop])
     pcovptot = levels(ys_rows["pcovptot"], ktop)
-    tend_t = levels(ys_rows["tend_t"], ini["tend_t_pre"][:ktop])
-    tend_q = levels(ys_rows["tend_q"], ini["tend_q_pre"][:ktop])
+    tend_t = levels(ys_rows["tend_t"], tend_t_pre[:ktop])
+    tend_q = levels(ys_rows["tend_q"], tend_q_pre[:ktop])
     tend_a = levels(ys_rows["tend_a"], ktop)
 
-    zqx0 = ini["zqx0"]
     tend_cld = torch.stack(
         [torch.cat([zero_row.expand(ktop, ncol),
                     (zqxn[m][ktop:] - zqx0[m][ktop:]) * zqtmst])
@@ -304,9 +412,6 @@ def cloudsc(fields: dict, params, ptsphy, config=None) -> CloudscOutputs:
     # ==================================================================
     # 8. flux diagnostics (ref: 2788-2867)
     # ==================================================================
-    paph = fields["paph"]
-    pvfl, pvfi, zfoealfa = fields["pvfl"], fields["pvfi"], ini["zfoealfa"]
-    zlneg = ini["zlneg"]
     pfplsl = zpfplsx[IR] + zpfplsx[IL]
     pfplsn = zpfplsx[IS] + zpfplsx[II]
     zgdph_r = -c.zrg_r * (paph[1:] - paph[:-1]) * zqtmst   # (nlev, ncol)

@@ -7,22 +7,32 @@ variants it reports the step time, the host<->device transfers and, as
 src/cloudsc_cuda/cloudsc/cloudsc_driver.cu, README.md:311-318). Two engines
 (`backend`):
 
-  * "auto" / "cuda": the fused kernel on the folded pack (folded-out flux
-    rows), the build of the configuration's own version and the pack's
-    form. "cuda" needs the card; "auto" runs the kernel's plain PyTorch
-    version with `device="cpu"`. The JAX driver's switches choose the pack:
-    its form from CLOUDSC_FOLD_NEWTON (default 1: the streamed ZDQS row;
-    0: the kernel's in-line CUADJTQ), CLOUDSC_FOLD_CURVES and
-    CLOUDSC_FOLD_DEP (default 0: the saturation curves and the deposition
-    chain computed in the kernel), and its column layout from
-    CLOUDSC_GROUP_COLUMNS (default 1: each snapshot column's copies
-    together; 0: the cyclic order of the reference's expansion) and
-    CLOUDSC_GROUP_SORT (default 1: grouped columns in activity order; 0:
-    in source order). The outputs come back in the canonical (cyclic)
-    order whatever the layout.
+  * "auto" / "cuda": the fused kernel on the input pack, the build of the
+    configuration's own version, the pack's form and the output rows.
+    "cuda" needs the card; "auto" runs the kernel's plain PyTorch version
+    with `device="cpu"`. The JAX driver's switches, read once at
+    construction, choose the payload: CLOUDSC_PACKED_STORAGE (default 1:
+    the pack built on the host; 0: the plain field dict of the scan
+    engine, padded as it pads, which each step packs on the card,
+    unfolded, `cuda_cloudsc.pack_inputs`: the per-field entry); the pack's
+    form from CLOUDSC_FOLD_INPUTS (default 1: section 1's state sums and
+    the summed pairs folded in fp64 on the host; 0: the unfolded pack, the
+    kernel forming them, with the in-line CUADJTQ),
+    CLOUDSC_FOLD_NEWTON (default 1: the streamed ZDQS row; 0: the
+    kernel's in-line CUADJTQ), CLOUDSC_FOLD_CURVES and CLOUDSC_FOLD_DEP
+    (default 0: the saturation curves and the deposition chain computed in
+    the kernel); the output rows from CLOUDSC_FOLD_OUTPUTS (default 1: the
+    four derivable flux rows rebuilt after the step; 0: written by the
+    kernel); and the pack's column layout from CLOUDSC_GROUP_COLUMNS
+    (default 1: each snapshot column's copies together; 0: the cyclic
+    order of the reference's expansion) and CLOUDSC_GROUP_SORT (default 1:
+    grouped columns in activity order; 0: in source order). The outputs
+    come back in the canonical (cyclic) order whatever the layout.
   * "scan": the eager engine (`physics.cloudsc`) on the plain field dict in
     cyclic column order, padded to a multiple of NPROMA, on the driver's
-    device.
+    device; with CLOUDSC_SCAN_PACKED=1 (default 0) the dict is stacked
+    once on each device after the copy (`physics.cloudsc.scan_pack`),
+    outside the timed loop.
 
 A mesh (`devices=[...]`, or `mesh=True` for every visible card) cuts the
 columns into contiguous shares, one a device (`dist.split_columns`): the
@@ -55,9 +65,10 @@ import torch
 
 from ..data.expand import activity_perm, group_inverse
 from ..kernels.cuda_cloudsc import FoldedPack, FusedStep, assemble, \
-    check_kernel_config, cloudsc_fused, const_vector, fold_flags, \
-    pack_inputs_folded, refuse_grad
-from ..physics.cloudsc import CloudscOutputs, cloudsc, make_inputs
+    check_kernel_config, fold_flags, fold_outputs_flag, pack_inputs_raw, \
+    refuse_grad
+from ..physics.cloudsc import CloudscOutputs, cloudsc, make_inputs, \
+    scan_pack
 from . import dist
 from .pmon import EnergySampler
 from .timer import PerformanceTimer, Timings
@@ -104,24 +115,32 @@ class CloudscDriver:
         self.dtype = dtype
         self.scheme_config = scheme_config
         self.nproma = max(int(nproma), 1)
+        # the JAX driver's switches, read once here: the payload (a pack,
+        # or a field dict: the scan engine's, or the kernel's without
+        # packed storage), the pack's form and column layout, the output
+        # rows
+        kernel = backend != "scan"
+        self.packed = kernel and \
+            os.environ.get("CLOUDSC_PACKED_STORAGE", "1") != "0"
+        self.scan_packed = not kernel and \
+            os.environ.get("CLOUDSC_SCAN_PACKED", "0") == "1"
+        self.form = fold_flags()
+        self.fold_outputs = fold_outputs_flag()
+        self.grouped = self.packed and \
+            os.environ.get("CLOUDSC_GROUP_COLUMNS", "1") != "0"
+        self.group_sort = self.grouped and \
+            os.environ.get("CLOUDSC_GROUP_SORT", "1") != "0"
         self.step = None
-        if backend != "scan":
+        if kernel:
             refuse_grad(ptsphy, *vars(params.ydecldp).values())
-            self.step = FusedStep(params, ptsphy, dtype, scheme_config).to(
-                self.device)
+            self.step = FusedStep(params, ptsphy, dtype, scheme_config,
+                                  self.fold_outputs).to(self.device)
             try:
                 check_kernel_config(self.step.c)
             except ValueError as e:
                 raise ValueError(f"{e}; the scan engine takes any "
                                  f"configuration (backend='scan', "
                                  f"--kernel scan)") from None
-        self._consts = {}
-        # the pack's form and column layout (the JAX driver's switches,
-        # read once here)
-        self.form = fold_flags()
-        self.grouped = os.environ.get("CLOUDSC_GROUP_COLUMNS", "1") != "0"
-        self.group_sort = self.grouped and \
-            os.environ.get("CLOUDSC_GROUP_SORT", "1") != "0"
         self._group_perm = None
         # the payload's column shares, [(start, stop)] (`shard`), and the
         # last run's outputs', [(device, (start, stop))] in canonical order
@@ -132,16 +151,36 @@ class CloudscDriver:
     def ndevices(self) -> int:
         return len(self.devices)
 
+    def config_name(self, route: str) -> str:
+        """`route/payload`, naming what the switches chose: the eager
+        engine's cyclic field dict (`scan/cyclic`, `+packed` stacked by
+        `scan_pack`), or the kernel's payload (`grouped`, `cyclic` or
+        `fields`), its input form (`+fold` or `+unfold`), its output rows
+        (`+foldo` folded out, `+foldo0` written by the kernel) and the
+        folded pack's optional rows (`+fc`, `+fn`, `+fd`), e.g.
+        `cuda/grouped+fold+foldo+fn`, the default."""
+        if self.backend == "scan":
+            return "scan/cyclic" + ("+packed" if self.scan_packed else "")
+        fold = self.form["fold_inputs"] and self.packed
+        name = ("fields" if not self.packed else "grouped" if self.grouped
+                else "cyclic") + ("+fold" if fold else "+unfold") \
+            + ("+foldo" if self.fold_outputs else "+foldo0")
+        if fold:
+            name += "".join(f"+{k}" for k in ("fc", "fn", "fd")
+                            if self.form[k])
+        return f"{route}/{name}"
+
     def prepare(self, inp):
         """InputData -> what one step consumes, on the host, before the cut
-        into shares. The kernel: the folded pack of the driver's form in
-        its column layout: by default grouped in activity order
-        (data.expand.activity_perm, dealt over the mesh's shares), grouped
-        in source order, or cyclic (the identity layout when the snapshot
-        is at least as wide as the run). The scan engine: the plain field
-        dict in cyclic order, zero-padded to a multiple of NPROMA columns
-        (and of the mesh's size; the padding is cut from the outputs)."""
-        if self.backend == "scan":
+        into shares. The kernel: the pack of the driver's form (folded or
+        unfolded) in its column layout: by default grouped in activity
+        order (data.expand.activity_perm, dealt over the mesh's shares),
+        grouped in source order, or cyclic (the identity layout when the
+        snapshot is at least as wide as the run). The scan engine, and the
+        kernel without packed storage: the plain field dict in cyclic
+        order, zero-padded to a multiple of NPROMA columns (and of the
+        mesh's size; the padding is cut from the outputs)."""
+        if not self.packed:
             fields = make_inputs(inp, self.dtype)
             mult = math.lcm(self.nproma, self.ndevices)
             pad = -inp.ngptot % mult
@@ -156,7 +195,7 @@ class CloudscDriver:
                 inp.fields["PCLV"], inp.fields["TENDENCY_TMP_CLD"],
                 inp.ptsphy, self.params.ydecldp.rlmin, nshards=self.ndevices,
             )
-        return pack_inputs_folded(
+        return pack_inputs_raw(
             inp, self.params, self.scheme_config, self.dtype,
             self._group_perm,
             column_order="grouped" if self.grouped else "cyclic",
@@ -230,27 +269,30 @@ class CloudscDriver:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-    def _consts_on(self, dev):
-        c = self._consts.get(dev)
-        if c is None:
-            c = self._consts[dev] = const_vector(self.step.c, dev)
-        return c
+    def _prepack(self, payloads: list) -> list:
+        """The scan engine's payloads stacked once on their devices
+        (`scan_pack`, CLOUDSC_SCAN_PACKED=1), or as they are."""
+        if not self.scan_packed:
+            return payloads
+        return [scan_pack(p, self.params, self.ptsphy, self.scheme_config)
+                for p in payloads]
 
     def _call(self, payload):
+        """One step on one device's payload: the scan engine, or the
+        kernel's step on the pack or the field dict (`FusedStep`)."""
         if self.backend == "scan":
             return cloudsc(payload, self.params, self.ptsphy,
                            self.scheme_config)
-        if payload.pack.is_cuda:
-            return cloudsc_fused(payload, self.step.c,
-                                 self._consts_on(payload.pack.device))
         return self.step(payload)
 
     def _outputs(self, res, payload, ncol: int) -> CloudscOutputs:
         """One device's raw results -> CloudscOutputs in the payload's own
-        column layout, the scan engine's padding cut to `ncol` columns."""
-        if self.backend == "scan":
+        column layout, the field dict's padding cut to `ncol` columns."""
+        if self.backend != "scan":
+            res = assemble(res, payload, self.step.c, self.fold_outputs)
+        if not self.packed:
             return CloudscOutputs(*(a[..., :ncol] for a in res))
-        return assemble(res, payload, self.step.c)
+        return res
 
     def _debug_check(self, res, payloads, ncols, step):
         for r, p, n in zip(res, payloads, ncols):
@@ -282,6 +324,7 @@ class CloudscDriver:
         del host
         self._sync()
         timings.h2d_s = time.perf_counter() - t0
+        payloads = self._prepack(payloads)
         # real columns of each share (the scan engine's padding excluded)
         ncols = [max(0, min(b, ncol) - a) for a, b in self.shares]
 
@@ -347,7 +390,7 @@ class CloudscDriver:
         outs = [self._outputs(r, p, k)
                 for r, p, k in zip(res, payloads, ncols)]
         del res, payloads
-        if self.backend == "scan":
+        if not self.packed:
             keep = [i for i, k in enumerate(ncols) if k]
             self.out_shares = [(self.devices[i], (self.shares[i][0],
                                                   self.shares[i][0] + ncols[i]))

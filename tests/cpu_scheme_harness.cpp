@@ -2,7 +2,8 @@
 // (csrc/cloudsc_fused.cu) with direct loads in place of the shared-memory
 // ring, one column after another, in double. tests/test_torch_kernel.py
 // builds it with g++ -ffp-contract=off, a stub cuda_runtime.h and the
-// kernel version's CLOUDSC_* macros (scheme version, form, skips), and holds
+// kernel version's CLOUDSC_* macros (scheme version, form, output rows,
+// skips), and holds
 // its outputs to the plain version's, so the CUDA header's arithmetic and
 // branches are checked on a host without a card.
 //
@@ -21,7 +22,11 @@ using T = double;
 enum { OL_PLUDE, OL_PCOVPTOT, OL_TEND_T, OL_TEND_Q, OL_TEND_A, OL_TCLD0,
        OL_COUNT = OL_TCLD0 + 4 };
 enum { OH_PFSQLF, OH_PFSQIF, OH_PFCQLNG, OH_PFCQNNG, OH_PFSQRF, OH_PFSQSF,
-       OH_PFCQRNG, OH_PFCQSNG, OH_PFPLSL, OH_PFPLSN, OH_COUNT };
+       OH_PFCQRNG, OH_PFCQSNG, OH_PFPLSL, OH_PFPLSN,
+#if !CLOUDSC_FOLD_OUTPUTS
+       OH_PFSQLTUR, OH_PFSQITUR, OH_PFHPSL, OH_PFHPSN,
+#endif
+       OH_COUNT };
 
 static void column(const T* pack, const T* col, const T* K, T* o_lev,
                    T* o_half, T* o_pr, int nlev, int ncol, int nrows, int j) {
@@ -47,6 +52,9 @@ static void column(const T* pack, const T* col, const T* K, T* o_lev,
   T a_lf = Z, a_if = Z, a_lng = Z, a_nng = Z;
   T alf_prev = Z, aif_prev = Z, alng_prev = Z, anng_prev = Z;
   T rain_prev = Z, snow_prev = Z, lnegr_prev = Z, lnegs_prev = Z;
+#if !CLOUDSC_FOLD_OUTPUTS
+  T a_ltur = Z, a_itur = Z;
+#endif
   for (int k = 0; k <= nlev; ++k) {
     T* oh = o_half + size_t(k) * OH_COUNT * n + j;
     oh[OH_PFSQLF * n] = a_lf;
@@ -59,16 +67,21 @@ static void column(const T* pack, const T* col, const T* K, T* o_lev,
     oh[OH_PFCQSNG * n] = anng_prev + lnegs_prev;
     oh[OH_PFPLSL * n] = cr.pfplsx[IR] + cr.pfplsx[IL];
     oh[OH_PFPLSN * n] = cr.pfplsx[IS] + cr.pfplsx[II];
+#if !CLOUDSC_FOLD_OUTPUTS
+    oh[OH_PFSQLTUR * n] = a_ltur;
+    oh[OH_PFSQITUR * n] = a_itur;
+    oh[OH_PFHPSL * n] = -K[C_RLVTT] * (cr.pfplsx[IR] + cr.pfplsx[IL]);
+    oh[OH_PFHPSN * n] = -K[C_RLSTT] * (cr.pfplsx[IS] + cr.pfplsx[II]);
+#endif
     if (k == nlev) break;
-    T zqx_in[4];
-    for (int m = 0; m < 4; ++m) zqx_in[m] = P(k, R_ZQX0_IN + m);
+    T ztp1_in, zqv_in, za_in, zqx_in[4];
+    state_rows(P, k, K, ztp1_in, zqv_in, za_in, zqx_in);
     const T pap = P(k, R_PAP), plude_in = P(k, R_PLUDE);
     const T paph_k = P(k, R_PAPH), paph_k1 = P(k + 1, R_PAPH);
     T curves[NCURVES];
     curve_rows(P, k, curves);
     Init<T> in;
-    level_init(K, P(k, R_ZTP1_IN), P(k, R_ZQV_IN), P(k, R_ZA_IN), zqx_in, pap,
-               curves, in);
+    level_init(K, ztp1_in, zqv_in, za_in, zqx_in, pap, curves, in);
     T plude_row = plude_in, pcovptot_row = Z, tend_t_row = in.tend_t_pre,
       tend_q_row = in.tend_q_pre, tend_a_row = Z;
     T zqxn_eff[NCLV];
@@ -126,6 +139,10 @@ static void column(const T* pack, const T* col, const T* K, T* o_lev,
     a_if = a_if + ice_inc;
     a_lng = a_lng + in.zlneg[IL] * zgdph_r;
     a_nng = a_nng + in.zlneg[II] * zgdph_r;
+#if !CLOUDSC_FOLD_OUTPUTS
+    a_ltur = a_ltur + P(k, R_PVFL) * ptsphy * zgdph_r;
+    a_itur = a_itur + P(k, R_PVFI) * ptsphy * zgdph_r;
+#endif
   }
   o_pr[j] = cr.prainfrac;
 }

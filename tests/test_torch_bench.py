@@ -43,7 +43,9 @@ BENCH_ENV = ("CLOUDSC_BENCH_NGPTOT", "CLOUDSC_BENCH_ITERS",
              "CLOUDSC_BENCH_CPU_DEVICES", "CLOUDSC_GROUP_COLUMNS",
              "CLOUDSC_GROUP_SORT", "CLOUDSC_FOLD_CURVES",
              "CLOUDSC_FOLD_NEWTON", "CLOUDSC_FOLD_DEP",
-             "CLOUDSC_S521_ROUND_SKIP")
+             "CLOUDSC_S521_ROUND_SKIP", "CLOUDSC_FOLD_INPUTS",
+             "CLOUDSC_FOLD_OUTPUTS", "CLOUDSC_PACKED_STORAGE",
+             "CLOUDSC_SCAN_PACKED")
 
 
 def _jax_baseline() -> float:
@@ -122,7 +124,12 @@ def test_cpu_mesh_scales_the_columns(clean_env, capsys):
     ({"CLOUDSC_FOLD_CURVES": "1", "CLOUDSC_FOLD_DEP": "1"},
      "plain/grouped+fold+foldo+fc+fn+fd"),
     ({"CLOUDSC_FOLD_NEWTON": "0"}, "plain/grouped+fold+foldo"),
-], ids=["default", "cyclic", "fc_fd", "fn_off"])
+    ({"CLOUDSC_FOLD_INPUTS": "0"}, "plain/grouped+unfold+foldo"),
+    ({"CLOUDSC_FOLD_INPUTS": "0", "CLOUDSC_FOLD_OUTPUTS": "0"},
+     "plain/grouped+unfold+foldo0"),
+    ({"CLOUDSC_PACKED_STORAGE": "0"}, "plain/fields+unfold+foldo"),
+], ids=["default", "cyclic", "fc_fd", "fn_off", "unfold", "unfold_foldo0",
+        "fields"])
 def test_config_names_route_and_pack(clean_env, env, config):
     from cloudsc_tpu_torch import data
     from cloudsc_tpu_torch.params import Params

@@ -572,17 +572,18 @@ def test_form_build_bitwise_equals_plain(cuda, case, dtype):
     version, and runs with at least one block an SM and its form's rows in
     the ring."""
     form, cfg = synthetic.FORM_CASES[case]
+    form, fo = synthetic.split_form(form)
     inp = tdata.load_input(tdata.default_input_path(), 16387)
     params = Params.from_input(inp)
     config = tscheme.SchemeConfig(**cfg)
     c = tscheme.derived_consts(params, inp.ptsphy, dtype, config)
-    p = cc.pack_inputs_folded(inp, params, config, dtype=dtype,
-                              **form).to(cuda)
-    v = cc.kernel_version(c, p.form)
+    p = cc.pack_inputs_raw(inp, params, config, dtype=dtype,
+                           **form).to(cuda)
+    v = cc.kernel_version(c, p.form, fo)
     assert v != cc.DEFAULT_VERSION
     cc.VERSION_LAUNCHES.clear()
-    got = cc.cloudsc_fused(p, c)
-    want = cc.cloudsc_fused_plain(p, c)
+    got = cc.cloudsc_fused(p, c, fold_outputs=fo)
+    want = cc.cloudsc_fused_plain(p, c, fo)
     torch.cuda.synchronize()
     assert dict(cc.VERSION_LAUNCHES) == {v: 1}
     ints = torch.int32 if dtype == torch.float32 else torch.int64
@@ -618,4 +619,48 @@ def test_layouts_equal_sorted_main_path(cuda, env, monkeypatch):
     out, _, _ = CloudscDriver(params, inp.ptsphy, device="cuda").run(
         inp, fetch_outputs=False)
     for name, a, b in zip(base._fields, out, base):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fields_entry_bitwise_on_the_card(cuda, dtype):
+    """The per-field entry on a field dict expanded on the card: its device
+    pack equals the host's unfolded pack, and its outputs equal the
+    unfolded build's on that pack and the plain version's, bit for bit, at
+    a ragged 16,387 columns; one launch of the unfolded build a call."""
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    inp = tdata.load_input(tdata.default_input_path(), 16387)
+    params = Params.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    fields = fields_on_device(inp, dtype, cuda)
+    host = cc.pack_inputs_unfolded(inp, params, dtype=dtype,
+                                   column_order="cyclic")
+    dev = cc.pack_inputs(fields, params)
+    assert torch.equal(dev.pack.cpu(), host.pack)
+    v = cc.kernel_version(c, dev.form)
+    cc.VERSION_LAUNCHES.clear()
+    got = cc.cloudsc_fused_fields(fields, params, inp.ptsphy)
+    torch.cuda.synchronize()
+    assert dict(cc.VERSION_LAUNCHES) == {v: 1}
+    p = host.to(cuda)
+    want = cc.assemble(cc.cloudsc_fused(p, c), p, c)
+    plain = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
+    for name, a, b, d in zip(want._fields, got, want, plain):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b) and torch.equal(a, d), name
+
+
+def test_scan_pack_bitwise_on_the_card(cuda):
+    """The pre-packed scan step equals the plain dict's bit for bit on the
+    card, fp64, 1,000 columns."""
+    from cloudsc_tpu_torch.physics.cloudsc import cloudsc, fields_on_device, \
+        scan_pack
+
+    inp = tdata.load_input(tdata.default_input_path(), NCOL)
+    params = Params.from_input(inp)
+    fields = fields_on_device(inp, torch.float64, cuda)
+    want = cloudsc(fields, params, inp.ptsphy)
+    got = cloudsc(scan_pack(fields, params, inp.ptsphy), params, inp.ptsphy)
+    for name, a, b in zip(want._fields, got, want):
         assert torch.equal(a, b), name

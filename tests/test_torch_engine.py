@@ -398,8 +398,11 @@ def test_version_macros_reach_the_build(case):
         "CLOUDSC_LAERICEAUTO": int(c.LAERICEAUTO),
         "CLOUDSC_LAERLIQAUTOLSP": int(c.LAERLIQAUTOLSP and c.IWARMRAIN == 1),
         "CLOUDSC_LAERLIQCOLL": int(c.LAERLIQCOLL and c.IWARMRAIN == 1),
-        # the main path's form, no skipped section, dynamic skips on
+        # the main path's form (the folded pack streaming ZDQS, the
+        # derivable flux rows folded out), no skipped section, dynamic
+        # skips on
         "CLOUDSC_FC": 0, "CLOUDSC_FN": 1, "CLOUDSC_FD": 0,
+        "CLOUDSC_FOLD_INPUTS": 1, "CLOUDSC_FOLD_OUTPUTS": 1,
         "CLOUDSC_DYNAMIC_SKIPS": 1, "CLOUDSC_S521_ROUND_SKIP": 0,
         **{f"CLOUDSC_SKIP_{t.upper()}": 0 for t in tscheme.SKIP_TAGS},
     }

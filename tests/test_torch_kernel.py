@@ -551,10 +551,12 @@ def host_harness_outputs(p, c, version, tmp_path):
     assert r.returncode == 0, r.stderr
     raw = torch.from_numpy(np.fromfile(tmp_path / "out.bin", np.float64))
     nl, n = p.nlev, p.ncol
-    sizes = (nl * len(cc.OLEV_ROWS) * n, (nl + 1) * len(cc.OHALF_ROWS) * n, n)
+    fo = version.fold_outputs
+    sizes = (nl * len(cc.OLEV_ROWS) * n,
+             (nl + 1) * len(cc.ohalf_rows(fo)) * n, n)
     lev, half, pr = raw.split(sizes)
     return cc.assemble((lev.reshape(nl, -1, n), half.reshape(nl + 1, -1, n),
-                        pr), p, c)
+                        pr), p, c, fo)
 
 
 @pytest.mark.parametrize("case", ["reference", *synthetic.VERSION_CASES])

@@ -178,16 +178,17 @@ def test_scheme_header_form_matches_plain_on_cpu(case, tmp_path):
     if shutil.which("g++") is None:
         pytest.skip("needs a host C++ compiler (g++)")
     form, kw = FORM_CASES[case]
+    form, fo = synthetic.split_form(form)
     inp = load_input(REFERENCE_DATA, ngptot=100, expand=False)
     params = Params.from_input(inp)
     cfg = tscheme.SchemeConfig(**kw)
     c = tscheme.derived_consts(params, inp.ptsphy, torch.float64, cfg)
-    p = cc.pack_inputs_folded(inp, params, cfg, dtype=torch.float64, **form)
-    v = cc.kernel_version(c, p.form)
+    p = cc.pack_inputs_raw(inp, params, cfg, dtype=torch.float64, **form)
+    v = cc.kernel_version(c, p.form, fo)
     assert v != cc.DEFAULT_VERSION
     (tmp_path / "cuda_runtime.h").write_text(_STUB_CUDA_RUNTIME)
     got = host_harness_outputs(p, c, v, tmp_path)
-    want = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
+    want = cc.assemble(cc.cloudsc_fused_plain(p, c, fo), p, c, fo)
     bad = {name: relerr(getattr(got, name).numpy(),
                         getattr(want, name).numpy())
            for name in want._fields
