@@ -355,6 +355,7 @@ def phase1_kernel_vs_plain(inp, params):
     import torch
 
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     results = {}
@@ -363,16 +364,17 @@ def phase1_kernel_vs_plain(inp, params):
         driver = CloudscDriver(params, inp.ptsphy, dtype=dtype, device="cuda")
         c, consts = driver.step.c, driver.step.consts
         p = driver.prepare(inp).to("cuda")
-        before = cc.LAUNCHES
+        before = tracing.counter("ops.k1")
         got = cc.assemble(cc.cloudsc_fused(p, c, consts), p, c)  # warm-up
         torch.cuda.synchronize()
         ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
         calls = 2 + ITERATIONS  # the check's call, the warm-up, the window
-        if cc.LAUNCHES - before != calls:
-            raise RuntimeError(f"{tag}: LAUNCHES rose by "
-                               f"{cc.LAUNCHES - before}, expected {calls}")
+        rose = tracing.counter("ops.k1") - before
+        if rose != calls:
+            raise RuntimeError(f"{tag}: ops.k1 rose by {rose}, expected "
+                               f"{calls}")
         plain_ms = _event_ms(lambda: cc.cloudsc_fused_plain(p, c), 1)
-        if cc.LAUNCHES - before != calls:
+        if tracing.counter("ops.k1") - before != calls:
             raise RuntimeError("the plain version launched the kernel")
         want = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
         max_abs = _check_fields(tag, got, want)
@@ -428,6 +430,7 @@ def phase1a_diagnostic_bodies(inp, params):
     import torch
 
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     results, nbytes = {}, {}
@@ -437,19 +440,21 @@ def phase1a_diagnostic_bodies(inp, params):
         c, consts = driver.step.c, driver.step.consts
         p = driver.prepare(inp).to("cuda")
         for mode, plain, counter in (
-                ("floor", lambda: cc.cloudsc_floor_plain(p), "FLOOR_LAUNCHES"),
-                ("init", lambda: cc.cloudsc_init_plain(p, c), "INIT_LAUNCHES")):
-            before = getattr(cc, counter)
+                ("floor", lambda: cc.cloudsc_floor_plain(p),
+                 "launches.k1.floor"),
+                ("init", lambda: cc.cloudsc_init_plain(p, c),
+                 "launches.k1.init")):
+            before = tracing.counter(counter)
             got = cc.assemble(cc.cloudsc_fused(p, c, consts, mode=mode), p, c)
             torch.cuda.synchronize()
             ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts, mode=mode),
                            ITERATIONS)
-            if getattr(cc, counter) - before != 2 + ITERATIONS:
+            if tracing.counter(counter) - before != 2 + ITERATIONS:
                 raise RuntimeError(f"{tag} {mode}: {counter} rose by "
-                                   f"{getattr(cc, counter) - before}")
+                                   f"{tracing.counter(counter) - before}")
             plain_ms = _event_ms(plain, 1)
             want = cc.assemble(plain(), p, c)
-            if getattr(cc, counter) - before != 2 + ITERATIONS:
+            if tracing.counter(counter) - before != 2 + ITERATIONS:
                 raise RuntimeError(f"the plain {mode} body launched a kernel")
             max_abs = _check_fields(f"{tag} {mode}", got, want)
             if mode == "floor" and max_abs != 0.0:
@@ -479,6 +484,7 @@ def phase1b_overlap_probe():
     from cloudsc_tpu_torch.bench import overlap_probe as ob
     from cloudsc_tpu_torch.bench import timing
     from cloudsc_tpu_torch.kernels import cuda_probes as cp
+    from cloudsc_tpu_torch.runtime import tracing
 
     a = ob.parse_args([])
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -494,11 +500,11 @@ def phase1b_overlap_probe():
     for variant in cp.VARIANTS:
         for mode in cp.OVERLAP_MODES:
             for w in a.w:
-                before = cp.OVERLAP_LAUNCHES
+                before = tracing.counter("launches.overlap")
                 got = cp.overlap_step(x, col, variant, mode, w, a.sb)
                 want = cp.overlap_plain(x, col, variant, mode, w, a.sb)
                 torch.cuda.synchronize()
-                if cp.OVERLAP_LAUNCHES - before != 1:
+                if tracing.counter("launches.overlap") - before != 1:
                     raise RuntimeError("overlap_step did not count 1 launch")
                 for g, h in zip(got, want):
                     if (g is None) != (h is None):
@@ -549,6 +555,7 @@ def phase1c_copy_probe():
 
     from cloudsc_tpu_torch.bench import dma_probe as db
     from cloudsc_tpu_torch.kernels import cuda_probes as cp
+    from cloudsc_tpu_torch.runtime import tracing
 
     col = torch.rand(cp.COL_SHAPE, device="cuda")
     results = {}
@@ -556,10 +563,10 @@ def phase1c_copy_probe():
     for key, probe in [(p.name, p) for p in db.probes(db.parse_args([]))] \
             + [("strided sb=1", sb1[0])]:
         x = torch.rand(probe.shape, device="cuda")
-        before = cp.COPY_LAUNCHES
+        before = tracing.counter("launches.copy")
         got = cp.dma_copy(x, col, probe)
         want = cp.dma_copy_plain(x, col)
-        if cp.COPY_LAUNCHES - before != 1:
+        if tracing.counter("launches.copy") - before != 1:
             raise RuntimeError("dma_copy did not count 1 launch")
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             raise RuntimeError(f"copy {key}: kernel != x * 1.0000001")
@@ -588,6 +595,7 @@ def phase1d_versions(inp, params, versions):
     from cloudsc_tpu_torch.data import synthetic
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.physics import scheme
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     results = {}
@@ -601,10 +609,10 @@ def phase1d_versions(inp, params, versions):
             c, consts = driver.step.c, driver.step.consts
             if cc.kernel_version(c) != v:
                 raise RuntimeError(f"{name}: runs {cc.kernel_version(c)}")
-            cc.VERSION_LAUNCHES.clear()
+            tracing.reset()
             out, timings, _ = driver.run(vinp, iterations=ITERATIONS,
                                          fetch_outputs=False)
-            launches = dict(cc.VERSION_LAUNCHES)
+            launches = tracing.keyed("launches.k1.version")
             if launches != {v: 1 + ITERATIONS}:
                 raise RuntimeError(f"{name} {tag} main path: launches "
                                    f"{launches}, expected {1 + ITERATIONS} "
@@ -742,6 +750,7 @@ def phase_forms(params, forms):
     from cloudsc_tpu_torch.data import synthetic
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.physics import scheme
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     inp = data.load_input(data.default_input_path(), RAGGED_NCOL)
@@ -756,9 +765,9 @@ def phase_forms(params, forms):
                                        device="cuda",
                                        scheme_config=scheme.SchemeConfig(
                                            **cfg))
-                cc.VERSION_LAUNCHES.clear()
+                tracing.reset()
                 out, _, _ = driver.run(inp, iterations=1, fetch_outputs=False)
-                launches = dict(cc.VERSION_LAUNCHES)
+                launches = tracing.keyed("launches.k1.version")
                 p = driver.prepare(inp).to("cuda")
             if launches != {v: 2}:
                 raise RuntimeError(f"form {name} {tag} main path: launches "
@@ -825,6 +834,7 @@ def phase_form_main_path(inp, params, ref_dev):
     from cloudsc_tpu_torch.bench.kernel_lab import same_bits
     from cloudsc_tpu_torch.data import synthetic
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     results = {}
@@ -832,13 +842,13 @@ def phase_form_main_path(inp, params, ref_dev):
         with _env(_form_env(synthetic.FORM_CASES[name][0])):
             driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
                                    device="cuda")
-            cc.VERSION_LAUNCHES.clear()
+            tracing.reset()
             t0 = time.perf_counter()
             out, timings, _ = driver.run(inp, iterations=ITERATIONS,
                                          fetch_outputs=False)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
-            launches = dict(cc.VERSION_LAUNCHES)
+            launches = tracing.keyed("launches.k1.version")
             t0 = time.perf_counter()
             host = driver.prepare(inp)
             pack_s = time.perf_counter() - t0
@@ -907,16 +917,17 @@ def phase_fields_entry(inp, params):
 
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     def run(env):
         with _env(env):
             driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float32,
                                    device="cuda")
-            cc.VERSION_LAUNCHES.clear()
+            tracing.reset()
             out, t, _ = driver.run(inp, iterations=ITERATIONS,
                                    fetch_outputs=False)
-        return driver, out, t, dict(cc.VERSION_LAUNCHES)
+        return driver, out, t, tracing.keyed("launches.k1.version")
 
     driver, fields_out, t_fields, launches = run(
         {"CLOUDSC_PACKED_STORAGE": "0"})
@@ -994,10 +1005,9 @@ def phase5_lab_path():
         kernel_lab, overlap_probe
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.kernels import cuda_probes as cp
+    from cloudsc_tpu_torch.runtime import tracing
 
-    cc.LAUNCHES = cc.FLOOR_LAUNCHES = cc.INIT_LAUNCHES = 0
-    cp.OVERLAP_LAUNCHES = cp.COPY_LAUNCHES = 0
-    cc.VERSION_LAUNCHES.clear()
+    tracing.reset()
     small = str(RAGGED_NCOL)
     for mod, argv in (
             (kernel_lab, ["--modes", "full", "init", "floor",
@@ -1018,13 +1028,14 @@ def phase5_lab_path():
             ("--fold 0 --foldo 0",
              cc.KernelVersion(fn=False, fold_inputs=False,
                               fold_outputs=False))):
-        if cc.VERSION_LAUNCHES[lab_form] == 0:
+        if tracing.counter("launches.k1.version", lab_form) == 0:
             raise RuntimeError(f"lab path: kernel_lab {argv} launched no "
                                f"build of that form")
-    counts = {"cloudsc_fused": cc.LAUNCHES, "cloudsc_floor": cc.FLOOR_LAUNCHES,
-              "cloudsc_init": cc.INIT_LAUNCHES,
-              "overlap_probe": cp.OVERLAP_LAUNCHES,
-              "dma_copy": cp.COPY_LAUNCHES}
+    counts = {"cloudsc_fused": tracing.counter("ops.k1"),
+              "cloudsc_floor": tracing.counter("launches.k1.floor"),
+              "cloudsc_init": tracing.counter("launches.k1.init"),
+              "overlap_probe": tracing.counter("launches.overlap"),
+              "dma_copy": tracing.counter("launches.copy")}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise RuntimeError(f"lab path: no launch of {missing}")
@@ -1093,8 +1104,8 @@ def phase_main_path(inp, params, dtype, ref_dev):
     import torch
 
     from cloudsc_tpu_torch import data
-    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.physics.cloudsc import CloudscOutputs
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
     from cloudsc_tpu_torch.validate import validate_outputs
 
@@ -1103,13 +1114,13 @@ def phase_main_path(inp, params, dtype, ref_dev):
     ngpblks = -(-NGPTOT // NPROMA)
     print(f"     NUMPROC=1, NUMOMP=1, NGPTOTG={NGPTOT}, NPROMA={NPROMA}, "
           f"NGPBLKS={ngpblks}")
-    cc.LAUNCHES = 0
+    tracing.reset()
     t0 = time.perf_counter()
     out, timings, timer = driver.run(inp, iterations=ITERATIONS,
                                      fetch_outputs=False)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = cc.LAUNCHES
+    launches = tracing.counter("ops.k1")
     if launches != 1 + ITERATIONS:
         raise RuntimeError(f"{tag} main path: {launches} kernel launches, "
                            f"expected {1 + ITERATIONS}")
@@ -1167,15 +1178,17 @@ def phase_scan(inp, params, ref_dev):
     timings)."""
     import torch
 
-    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     driver = CloudscDriver(params, inp.ptsphy, dtype=torch.float64,
                            device="cuda", backend="scan", nproma=NPROMA)
 
     def counts():
-        return (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES,
-                dict(cc.VERSION_LAUNCHES))
+        return (tracing.counter("ops.k1"),
+                tracing.counter("launches.k1.floor"),
+                tracing.counter("launches.k1.init"),
+                tracing.keyed("launches.k1.version"))
 
     before = counts()
     t0 = time.perf_counter()
@@ -1212,11 +1225,13 @@ def phase_scan(inp, params, ref_dev):
 
 
 def _kernel_counts():
-    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
-    from cloudsc_tpu_torch.kernels import cuda_probes as cp
+    from cloudsc_tpu_torch.runtime import tracing
 
-    return (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES,
-            dict(cc.VERSION_LAUNCHES), cp.OVERLAP_LAUNCHES, cp.COPY_LAUNCHES)
+    return (tracing.counter("ops.k1"), tracing.counter("launches.k1.floor"),
+            tracing.counter("launches.k1.init"),
+            tracing.keyed("launches.k1.version"),
+            tracing.counter("launches.overlap"),
+            tracing.counter("launches.copy"))
 
 
 def _rel(a, b) -> float:
@@ -1480,13 +1495,13 @@ def cli_rank(argv) -> int:
     count on stderr (`RANK_LINE` + JSON)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cloudsc_tpu_torch import cli
-    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime import tracing
 
-    cc.LAUNCHES = 0
+    tracing.reset()
     rc = cli.main(argv)
     # one write, so the ranks' lines on the shared stderr do not interleave
     line = RANK_LINE + json.dumps({"rank": int(os.environ.get("RANK", "0")),
-                                   "launches": cc.LAUNCHES})
+                                   "launches": tracing.counter("ops.k1")})
     os.write(sys.stderr.fileno(), f"\n{line}\n".encode())
     return rc
 
@@ -1609,7 +1624,7 @@ def phase_mesh(inp, params):
     timer's per-device ms a step)}."""
     import torch
 
-    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime import tracing
     from cloudsc_tpu_torch.runtime.driver import CloudscDriver
 
     ndev = torch.cuda.device_count()
@@ -1622,11 +1637,11 @@ def phase_mesh(inp, params):
                                   device="cuda").run(inp, fetch_outputs=False)
         mesh = CloudscDriver(params, inp.ptsphy, dtype=dtype,
                              devices=devices)
-        cc.LAUNCHES = 0
+        tracing.reset()
         shards, timings, timer = mesh.run(inp, iterations=ITERATIONS,
                                           fetch_outputs=False)
         torch.cuda.synchronize()
-        launches = cc.LAUNCHES
+        launches = tracing.counter("ops.k1")
         if launches != 2 * (1 + ITERATIONS):
             raise RuntimeError(f"mesh {tag}: {launches} K1 launches, "
                                f"expected {2 * (1 + ITERATIONS)}")
@@ -1786,6 +1801,7 @@ def phase_measurement_entries():
 
     from cloudsc_tpu_torch.bench import bench, sweep
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.runtime import tracing
 
     t0 = time.perf_counter()
     lines = {}
@@ -1793,12 +1809,12 @@ def phase_measurement_entries():
     try:
         for tag in ("fp32", "fp64"):
             os.environ["CLOUDSC_BENCH_PRECISION"] = tag
-            cc.LAUNCHES = 0
-            cc.VERSION_LAUNCHES.clear()
+            tracing.reset()
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = bench.main()
-            launches = cc.VERSION_LAUNCHES[cc.KernelVersion()]
+            launches = tracing.counter("launches.k1.version",
+                                       cc.KernelVersion())
             out = [x for x in buf.getvalue().splitlines()
                    if not x.startswith("#")]
             if rc != 0 or len(out) != 1:
@@ -1808,10 +1824,10 @@ def phase_measurement_entries():
             if "skipped" in rec or not rec["value"] > 0 \
                     or not rec["config"].startswith("cuda/grouped+fold") \
                     or launches != 1 + bench.CARD_ITERS \
-                    or cc.LAUNCHES != launches:
+                    or tracing.counter("ops.k1") != launches:
                 raise RuntimeError(f"bench {tag}: {rec}, {launches} "
                                    f"reference-build launches of "
-                                   f"{cc.LAUNCHES}")
+                                   f"{tracing.counter('ops.k1')}")
             print(f"phase 10 bench {tag}: {out[0]}; {launches} K1 launches")
             lines[tag] = (rec, launches)
     finally:

@@ -36,8 +36,10 @@ process instead, and is refused under several ranks.
 Where this differs from `python -m cloudsc_tpu`: `--debug-nans` checks the
 21 outputs of every step for a non-finite value (not every intermediate,
 as `jax_debug_nans` does); `--profile` writes a `torch.profiler` Chrome
-trace of the timed loop; under several ranks each rank writes its own
-`--write-*` file, PATH with `.rank<r>` before the suffix.
+trace of the timed loop and prints the run's spans and counters
+(`runtime.tracing`), also written beside the trace as JSON; under
+several ranks each rank writes its own `--write-*` file, PATH with
+`.rank<r>` before the suffix.
 
 Usage:
     python -m cloudsc_tpu_torch 1 163840 128 [--precision fp32|fp64]
@@ -52,6 +54,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from pathlib import Path
@@ -106,7 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "cloudsc_driver.F90:10-715)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the timed "
-                        "loop into DIR, one file a rank and NPROMA")
+                        "loop into DIR, one file a rank and NPROMA, and "
+                        "print the run's spans and counters, also written "
+                        "there as spans_rank<r>_nproma<n>.json")
     p.add_argument("--debug-nans", action="store_true",
                    help="after every step, check the 21 outputs for a NaN "
                         "or an infinity on the device (outside the timed "
@@ -175,13 +180,26 @@ def main(argv=None) -> int:
         dist.finalize()
 
 
+def _report_spans(directory, rank: int, nproma: int) -> None:
+    """The run's spans and counters (`runtime.tracing`): printed on rank 0
+    and written as DIR/spans_rank<r>_nproma<n>.json."""
+    from .runtime import tracing
+
+    path = os.path.join(directory, f"spans_rank{rank}_nproma{nproma}.json")
+    with open(path, "w") as f:
+        json.dump(tracing.summary(), f, indent=1)
+    if rank == 0:
+        print("\n".join(tracing.table()))
+    print(f" spans -> {path}")
+
+
 def _run(parser, args, sweep) -> int:
     import torch
 
     from . import data
     from .params import Params
     from .physics.scheme import SchemeConfig
-    from .runtime import dist
+    from .runtime import dist, tracing
     from .runtime.driver import CloudscDriver
     from .validate import FIELD_ATTR, REF_DATASET, device_field_norms, \
         reference_on_device, validate_from_norms, validate_outputs
@@ -240,6 +258,8 @@ def _run(parser, args, sweep) -> int:
         if on_card:  # the peak line below reads the last run alone
             for d in driver.devices:
                 torch.cuda.reset_peak_memory_stats(d)
+        if trace is not None:  # the spans table reads this run alone
+            tracing.reset()
         out, timings, timer = driver.run(inp, iterations=args.iterations,
                                          fetch_outputs=fetch, trace=trace,
                                          debug_nans=args.debug_nans)
@@ -249,6 +269,8 @@ def _run(parser, args, sweep) -> int:
                                 f"trace_rank{rank}_nproma{nproma}.json")
             trace.export_chrome_trace(path)
             print(f" profiler trace -> {path}")
+            if nproma != sweep[-1]:  # the last run's after its validation
+                _report_spans(args.profile, rank, nproma)
 
         # the cross-rank perf gather (ref: timer_mod.F90:167): a collective,
         # so every rank takes part; rank 0 prints
@@ -285,6 +307,8 @@ def _run(parser, args, sweep) -> int:
             norms = device_field_norms(outs, refs).cpu().numpy()
             validate_from_norms(norms, ngptotg, multiprocess=multi,
                                 work_eps=float(torch.finfo(dtype).eps))
+    if args.profile:
+        _report_spans(args.profile, rank, sweep[-1])
     if on_card and rank0:
         peak = max(torch.cuda.max_memory_allocated(d) for d in driver.devices)
         print(f" peak device memory: {peak / 2**20:.1f} MiB "

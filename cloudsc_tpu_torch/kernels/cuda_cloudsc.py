@@ -29,9 +29,20 @@ that mirrors the Pallas `_kernel` / `_sub_level` / `_write_level_rows` — for a
 CPU pack. Its `mode` also selects the TPU kernel's two diagnostic bodies
 (`floor`, `init`: the same I/O with degenerate or section-1 compute, for the
 measurement lab), with plain versions `cloudsc_floor_plain` /
-`cloudsc_init_plain`. `LAUNCHES`, `FLOOR_LAUNCHES` and `INIT_LAUNCHES` count
-the launches of the three bodies, `VERSION_LAUNCHES` the full body's by
-scheme version.
+`cloudsc_init_plain`. The launches are counted in `runtime.tracing`:
+`ops.k1` the full body's (the step's K1), `launches.k1.floor` and
+`launches.k1.init` the diagnostic bodies', `launches.k1.version` the full
+body's by build (keyed by `KernelVersion`).
+
+The step records its layers there too: `FusedStep.forward` is the span
+`cloudsc.step`, around `cloudsc.pack` (the device pack of a field dict,
+`pack_inputs`) and `cloudsc.k1` (the launch with its checks and library
+lookup); `assemble` is `cloudsc.assemble`, around `cloudsc.foldo`. Each
+layer counts the device operations it issues, each a kernel, copy or fill
+(`ops.pack`, `ops.k1`, `ops.assemble`), the step its `columns`, the pack
+the bytes it writes (`pack_bytes`). On the card PyTorch cuts a copy into a
+view that spans more than 2**31 bytes into several launches, which the
+count does not see (the device pack's row copies at full width).
 
 The kernel streams each column's input rows through a per-thread ring of
 shared-memory stages filled by asynchronous copies. `RING` holds its
@@ -47,7 +58,6 @@ configuration and pack run.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import os
 
@@ -57,13 +67,8 @@ import torch
 from ..physics import satfold, scheme
 from ..physics.cloudsc import CloudscOutputs
 from ..physics.scheme import IL, II, IR, IS, NCLV
+from ..runtime import tracing
 
-# kernel launches since import (or since a caller reset them), per body;
-# VERSION_LAUNCHES splits the full body's by scheme version (KernelVersion)
-LAUNCHES = 0
-FLOOR_LAUNCHES = 0
-INIT_LAUNCHES = 0
-VERSION_LAUNCHES: collections.Counter = collections.Counter()
 # mode -> the body's name in the C entry points (cloudsc_<body>_<f32|f64>)
 _BODIES = {"full": "fused", "floor": "floor", "init": "init"}
 MODES = tuple(_BODIES)
@@ -592,7 +597,9 @@ def pack_inputs(fields: dict, params, config=None, ptsphy=None,
     `fold=True` (needs `ptsphy`) folds at the fields' dtype, in the
     environment's form (`fold_flags`: fc, fn, fd), the optional rows
     computed in fp64 on the host from the fields as the JAX function
-    computes them."""
+    computes them. The unfolded pack (the step's) counts its device
+    operations in `ops.pack`; both count the bytes they write in
+    `pack_bytes`."""
     pt = fields["pt"]
     dtype, dev = pt.dtype, pt.device
     nlev, ncol = pt.shape
@@ -628,8 +635,15 @@ def pack_inputs(fields: dict, params, config=None, ptsphy=None,
         pack[:r.shape[0], i] = r
         if r.shape[0] == nlev:
             pack[nlev, i] = r[nlev - 1]
-    col = torch.stack([fields["plsm"].to(dtype), fields["ldcum"].to(dtype),
-                       fields["ktype"].to(dtype), fields["paph"][nlev]])
+    cols = [fields[n] for n in COL_ROWS[:3]]
+    col = torch.stack([f.to(dtype) for f in cols] + [fields["paph"][nlev]])
+    if not fold:
+        # a copy a row and one more for each edge row, a cast of each
+        # per-column row not in the pack's dtype, the stack
+        tracing.count("ops.pack", len(rows) + 1
+                      + sum(r.shape[0] == nlev for r in rows)
+                      + sum(f.dtype != dtype for f in cols))
+    tracing.count("pack_bytes", pack.nbytes + col.nbytes)
     return FoldedPack(pack=pack, col=col, rows=names, **kw)
 
 
@@ -715,7 +729,6 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
     `p`'s form and the output rows, `kernel_version(c, p.form,
     fold_outputs)`). An input that requires grad is refused on either
     device (`refuse_grad`)."""
-    global LAUNCHES, FLOOR_LAUNCHES, INIT_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
     refuse_grad(p.pack, p.col, consts)
@@ -748,13 +761,11 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
         rc = fn(p.pack.data_ptr(), p.col.data_ptr(), consts.data_ptr(),
                 o_lev.data_ptr(), o_half.data_ptr(), o_prainfrac.data_ptr(),
                 nlev, ncol, nrows, stream)
-    if mode == "floor":
-        FLOOR_LAUNCHES += 1
-    elif mode == "init":
-        INIT_LAUNCHES += 1
+    if mode == "full":
+        tracing.count("ops.k1")
+        tracing.count("launches.k1.version", key=version)
     else:
-        LAUNCHES += 1
-        VERSION_LAUNCHES[version] += 1
+        tracing.count(f"launches.k1.{mode}")
     if rc != 0:
         raise RuntimeError(f"cloudsc_fused ({mode}) launch failed: CUDA "
                            f"error {rc}")
@@ -997,6 +1008,9 @@ def foldo_synthesize(half: dict, src, c) -> None:
             acc = acc + term[k]
             out[k + 1] = acc
         half[name] = out
+    # the two scalings, ZGDPH_R's three, and a row's two products, its
+    # zeros and an add and a copy a level
+    tracing.count("ops.assemble", 5 + 2 * (3 + 2 * (paph.shape[0] - 1)))
 
 
 def assemble(res, src, c, fold_outputs: bool = True) -> CloudscOutputs:
@@ -1005,27 +1019,30 @@ def assemble(res, src, c, fold_outputs: bool = True) -> CloudscOutputs:
     `src` (the step's pack or field dict, `foldo_synthesize`) where the
     build left them out (`fold_outputs`), and read from the buffer where it
     wrote them."""
-    o_lev, o_half, o_prainfrac = res
-    lev = {name: o_lev[:, j] for j, name in enumerate(OLEV_ROWS)}
-    half = {name: o_half[:, j]
-            for j, name in enumerate(ohalf_rows(fold_outputs))}
-    if fold_outputs:
-        foldo_synthesize(half, src, c)
-    tcld = torch.stack([lev[f"tcld{m}"] for m in range(4)]
-                       + [torch.zeros_like(lev["tcld0"])])
-    return CloudscOutputs(
-        plude=lev["plude"], pcovptot=lev["pcovptot"],
-        prainfrac_toprfz=o_prainfrac,
-        pfsqlf=half["pfsqlf"], pfsqif=half["pfsqif"],
-        pfcqlng=half["pfcqlng"], pfcqnng=half["pfcqnng"],
-        pfsqrf=half["pfsqrf"], pfsqsf=half["pfsqsf"],
-        pfcqrng=half["pfcqrng"], pfcqsng=half["pfcqsng"],
-        pfsqltur=half["pfsqltur"], pfsqitur=half["pfsqitur"],
-        pfplsl=half["pfplsl"], pfplsn=half["pfplsn"],
-        pfhpsl=half["pfhpsl"], pfhpsn=half["pfhpsn"],
-        tendency_loc_t=lev["tend_t"], tendency_loc_q=lev["tend_q"],
-        tendency_loc_a=lev["tend_a"], tendency_loc_cld=tcld,
-    )
+    with tracing.span("cloudsc.assemble"):
+        o_lev, o_half, o_prainfrac = res
+        lev = {name: o_lev[:, j] for j, name in enumerate(OLEV_ROWS)}
+        half = {name: o_half[:, j]
+                for j, name in enumerate(ohalf_rows(fold_outputs))}
+        if fold_outputs:
+            with tracing.span("cloudsc.foldo"):
+                foldo_synthesize(half, src, c)
+        tcld = torch.stack([lev[f"tcld{m}"] for m in range(4)]
+                           + [torch.zeros_like(lev["tcld0"])])
+        tracing.count("ops.assemble", 2)
+        return CloudscOutputs(
+            plude=lev["plude"], pcovptot=lev["pcovptot"],
+            prainfrac_toprfz=o_prainfrac,
+            pfsqlf=half["pfsqlf"], pfsqif=half["pfsqif"],
+            pfcqlng=half["pfcqlng"], pfcqnng=half["pfcqnng"],
+            pfsqrf=half["pfsqrf"], pfsqsf=half["pfsqsf"],
+            pfcqrng=half["pfcqrng"], pfcqsng=half["pfcqsng"],
+            pfsqltur=half["pfsqltur"], pfsqitur=half["pfsqitur"],
+            pfplsl=half["pfplsl"], pfplsn=half["pfplsn"],
+            pfhpsl=half["pfhpsl"], pfhpsn=half["pfhpsn"],
+            tendency_loc_t=lev["tend_t"], tendency_loc_q=lev["tend_q"],
+            tendency_loc_a=lev["tend_a"], tendency_loc_cld=tcld,
+        )
 
 
 class FusedStep(torch.nn.Module):
@@ -1057,10 +1074,16 @@ class FusedStep(torch.nn.Module):
         return c
 
     def forward(self, x):
-        p = x if isinstance(x, FoldedPack) else pack_inputs(
-            x, self.params, self.config, self.ptsphy)
-        return cloudsc_fused(p, self.c, self.consts_on(p.pack.device),
-                             fold_outputs=self.fold_outputs)
+        with tracing.span("cloudsc.step"):
+            if isinstance(x, FoldedPack):
+                p = x
+            else:
+                with tracing.span("cloudsc.pack"):
+                    p = pack_inputs(x, self.params, self.config, self.ptsphy)
+            tracing.count("columns", p.ncol)
+            with tracing.span("cloudsc.k1"):
+                return cloudsc_fused(p, self.c, self.consts_on(p.pack.device),
+                                     fold_outputs=self.fold_outputs)
 
 
 def cloudsc_fused_fields(fields: dict, params, ptsphy, config=None,

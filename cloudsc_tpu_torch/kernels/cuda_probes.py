@@ -30,8 +30,8 @@ built kernel runs with on the card.
 Every multiply-add of K2 is one rounding, as XLA's contraction of the JAX
 body and the kernel's fmaf compute it; the plain version takes it with
 `fma32`. A wrapper given CPU tensors runs the plain version; given CUDA
-tensors it launches the kernel or raises. `OVERLAP_LAUNCHES` and
-`COPY_LAUNCHES` count the launches.
+tensors it launches the kernel or raises. `runtime.tracing` counts the
+launches: `launches.overlap` and `launches.copy`.
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..runtime import tracing
 
 LANES = 128
 VARIANTS = ("plain", "alias", "scratch", "prod", "branchy")
@@ -56,9 +58,6 @@ COL_SHAPE = (8, 128)
 MUL = float(np.float32(1.0000001))
 ADD = float(np.float32(1e-7))
 SCR_IN, SCR_OUT, LOOK = (float(np.float32(v)) for v in (1e-8, 1e-9, 1e-9))
-
-OVERLAP_LAUNCHES = 0
-COPY_LAUNCHES = 0
 
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -153,7 +152,6 @@ def overlap_step(x: torch.Tensor, col: torch.Tensor, variant: str,
     `(nk2, rr, ncol)` (resident: `(1, rr, ncol)`, level 0), colo `(ncol,)`
     for `prod` (else None), col_out `(8, 128)`. A CUDA x launches the
     kernel (or raises); a CPU x runs the plain version."""
-    global OVERLAP_LAUNCHES
     if x.device.type == "cpu":
         return overlap_plain(x, col, variant, mode, w, sb)
     check_overlap_args(x, col, variant, mode, w, sb, cuda=True)
@@ -172,7 +170,7 @@ def overlap_step(x: torch.Tensor, col: torch.Tensor, variant: str,
             colo.data_ptr() if colo is not None else None, col_out.data_ptr(),
             VARIANTS.index(variant), w, int(resident), nk2, rr, ncol, sb,
             stream)
-    OVERLAP_LAUNCHES += 1
+    tracing.count("launches.overlap")
     if rc != 0:
         raise RuntimeError(f"overlap_probe launch failed: CUDA error {rc}")
     return out, colo, col_out
@@ -389,7 +387,6 @@ def dma_copy(x: torch.Tensor, col: torch.Tensor, probe: CopyProbe):
     """One pass of the copy probe -> (x * 1.0000001, col * 1.0000001). A
     CUDA x launches the kernel with the probe's access shape (or raises); a
     CPU x runs the plain version."""
-    global COPY_LAUNCHES
     if x.device.type == "cpu":
         return dma_copy_plain(x, col)
     check_copy_args(x, col, probe)
@@ -404,7 +401,7 @@ def dma_copy(x: torch.Tensor, col: torch.Tensor, probe: CopyProbe):
             x.data_ptr(), col.data_ptr(), out.data_ptr(), col_out.data_ptr(),
             probe.run_len, probe.nruns, probe.run_stride, probe.ni,
             probe.base_i, probe.base_k, probe.nsteps, stream)
-    COPY_LAUNCHES += 1
+    tracing.count("launches.copy")
     if rc != 0:
         raise RuntimeError(f"copy_probe launch failed: CUDA error {rc}")
     return out, col_out

@@ -50,6 +50,13 @@ as does a parameter that requires grad (the kernel has no backward;
 `device="cpu"` runs on the host. With EC_PMON set, `run` samples the
 first device's energy around the timed loop (`runtime.pmon`; a CUDA device
 through NVML) into `Timings.energy_line`.
+
+`run` records its phases as spans of `runtime.tracing`: `cloudsc.prepare`
+(the host pack), `cloudsc.shard` (H2D and a sync), `cloudsc.warmup` (the
+first call and a sync), `cloudsc.loop` (the timed loop), `cloudsc.ungroup`
+(the canonical order) and, when the outputs are fetched, `cloudsc.fetch`
+(D2H); `Timings.h2d_s`, `compile_s` and `d2h_s` are the durations of
+`cloudsc.shard`, `cloudsc.warmup` and `cloudsc.fetch`.
 """
 
 from __future__ import annotations
@@ -69,7 +76,7 @@ from ..kernels.cuda_cloudsc import FoldedPack, FusedStep, assemble, \
     refuse_grad
 from ..physics.cloudsc import CloudscOutputs, cloudsc, make_inputs, \
     scan_pack
-from . import dist
+from . import dist, tracing
 from .pmon import EnergySampler
 from .timer import PerformanceTimer, Timings
 
@@ -205,7 +212,8 @@ class CloudscDriver:
         """The prepared host payload -> one payload a device, each its own
         contiguous column share (`dist.split_columns`) on its device: a
         contiguous `FoldedPack` (the kernel refuses a strided one), or a
-        field dict. One device: the whole payload on it."""
+        field dict. One device: the whole payload on it. Counts the bytes
+        placed in `h2d_bytes`."""
         ncol = (host.ncol if isinstance(host, FoldedPack)
                 else host["pt"].shape[-1])
         self.shares = dist.split_columns(ncol, self.ndevices)
@@ -221,6 +229,9 @@ class CloudscDriver:
             else:
                 out.append({k: v[..., a:b].to(dev).contiguous()
                             for k, v in host.items()})
+        tracing.count("h2d_bytes", sum(
+            t.nbytes for x in out for t in ((x.pack, x.col) if isinstance(
+                x, FoldedPack) else x.values())))
         return out
 
     def ungroup(self, outs: list, inp) -> list:
@@ -315,23 +326,24 @@ class CloudscDriver:
         every call for a non-finite value (`check_finite`, step 0 the
         warm-up), each step then in its own timed window and the check
         outside it."""
-        host = self.prepare(inp)
+        with tracing.span("cloudsc.prepare"):
+            host = self.prepare(inp)
         timings = Timings()
         ncol = inp.ngptot
 
-        t0 = time.perf_counter()
-        payloads = self.shard(host)
-        del host
-        self._sync()
-        timings.h2d_s = time.perf_counter() - t0
+        with tracing.span("cloudsc.shard") as s:
+            payloads = self.shard(host)
+            del host
+            self._sync()
+        timings.h2d_s = s.seconds
         payloads = self._prepack(payloads)
         # real columns of each share (the scan engine's padding excluded)
         ncols = [max(0, min(b, ncol) - a) for a, b in self.shares]
 
-        t0 = time.perf_counter()
-        res = [self._call(p) for p in payloads]
-        self._sync()
-        timings.compile_s = time.perf_counter() - t0
+        with tracing.span("cloudsc.warmup") as s:
+            res = [self._call(p) for p in payloads]
+            self._sync()
+        timings.compile_s = s.seconds
         if debug_nans:
             self._debug_check(res, payloads, ncols, 0)
 
@@ -346,7 +358,8 @@ class CloudscDriver:
         seconds = [0.0] * n
         windows = 1 if not debug_nans else iterations
         steps = iterations // windows
-        with trace if trace is not None else contextlib.nullcontext():
+        with trace if trace is not None else contextlib.nullcontext(), \
+                tracing.span("cloudsc.loop"):
             for w in range(windows):
                 # drop the last step's outputs first, so the caching
                 # allocator reuses their blocks: a cudaMalloc inside the
@@ -390,27 +403,29 @@ class CloudscDriver:
         outs = [self._outputs(r, p, k)
                 for r, p, k in zip(res, payloads, ncols)]
         del res, payloads
-        if not self.packed:
-            keep = [i for i, k in enumerate(ncols) if k]
-            self.out_shares = [(self.devices[i], (self.shares[i][0],
-                                                  self.shares[i][0] + ncols[i]))
-                               for i in keep]
-            outs = [outs[i] for i in keep]
-        else:
-            outs = self.ungroup(outs, inp)
-            self.out_shares = list(zip(self.devices, dist.split_columns(
-                ncol, n)))
+        with tracing.span("cloudsc.ungroup"):
+            if not self.packed:
+                keep = [i for i, k in enumerate(ncols) if k]
+                self.out_shares = [
+                    (self.devices[i], (self.shares[i][0],
+                                       self.shares[i][0] + ncols[i]))
+                    for i in keep]
+                outs = [outs[i] for i in keep]
+            else:
+                outs = self.ungroup(outs, inp)
+                self.out_shares = list(zip(self.devices, dist.split_columns(
+                    ncol, n)))
         out = outs[0] if n == 1 else outs
         del outs
         if not fetch_outputs:
             return out, timings, timer
         self._sync()
-        t0 = time.perf_counter()
-        if n == 1:
-            host_out = CloudscOutputs(*(a.cpu().numpy() for a in out))
-        else:
-            host_out = CloudscOutputs(*(
-                np.concatenate([f.cpu().numpy() for f in fs], axis=-1)
-                for fs in zip(*out)))
-        timings.d2h_s = time.perf_counter() - t0
+        with tracing.span("cloudsc.fetch") as s:
+            if n == 1:
+                host_out = CloudscOutputs(*(a.cpu().numpy() for a in out))
+            else:
+                host_out = CloudscOutputs(*(
+                    np.concatenate([f.cpu().numpy() for f in fs], axis=-1)
+                    for fs in zip(*out)))
+        timings.d2h_s = s.seconds
         return host_out, timings, timer

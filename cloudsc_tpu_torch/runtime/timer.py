@@ -62,7 +62,6 @@ class PerformanceTimer:
         self.tend = 0.0
         self.device_time = [0.0] * ndevices
         self.device_cols = [0] * ndevices
-        self.device_calls = [0] * ndevices
 
     def start(self):
         self.tstart = time.perf_counter()
@@ -70,10 +69,9 @@ class PerformanceTimer:
     def end(self):
         self.tend = time.perf_counter()
 
-    def log(self, device: int, seconds: float, ncols: int, ncalls: int = 1):
+    def log(self, device: int, seconds: float, ncols: int):
         self.device_time[device] += seconds
         self.device_cols[device] += ncols
-        self.device_calls[device] += ncalls
 
     # -- report ---------------------------------------------------------------
 

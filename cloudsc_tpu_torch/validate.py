@@ -209,15 +209,28 @@ def device_field_norms(outputs, reference):
     On a mesh both are lists, one a device (a CloudscOutputs and its
     reference shard): each device reduces its own shard and the (21, 5)
     rows are reduced on the host (`dist.reduce_norms`); the table comes
-    back on the host."""
+    back on the host. Recorded as the span `cloudsc.validate`
+    (`runtime.tracing`)."""
     import torch
 
-    from .runtime.dist import error_norms, reduce_norms
+    from .runtime import tracing
+    from .runtime.dist import reduce_norms
 
-    if isinstance(outputs, (list, tuple)) and not hasattr(outputs, "_fields"):
-        return torch.from_numpy(reduce_norms(
-            [device_field_norms(o, r).cpu().numpy()
-             for o, r in zip(outputs, reference)]))
+    with tracing.span("cloudsc.validate"):
+        if isinstance(outputs, (list, tuple)) \
+                and not hasattr(outputs, "_fields"):
+            return torch.from_numpy(reduce_norms(
+                [_field_norms(o, r).cpu().numpy()
+                 for o, r in zip(outputs, reference)]))
+        return _field_norms(outputs, reference)
+
+
+def _field_norms(outputs, reference):
+    """One device's (21, 5) table (`device_field_norms`)."""
+    import torch
+
+    from .runtime.dist import error_norms
+
     rows = []
     for name, _ in VALIDATION_ORDER:
         r = reference[REF_DATASET[name]]

@@ -12,7 +12,9 @@ counterpart of tests/test_cli.py for `python -m cloudsc_tpu_torch`.
     without h5py raises, and nothing else is written;
   * `--debug-nans` passes on the snapshot and raises FloatingPointError
     naming the field and the step on an input poisoned with one NaN;
-  * `--profile DIR` writes a Chrome trace of the timed loop;
+  * `--profile DIR` writes a Chrome trace of the timed loop, with the
+    program's spans in it, and prints and writes the run's spans and
+    counters;
   * `--mesh` is refused under WORLD_SIZE=2 and without a card.
 """
 
@@ -202,6 +204,20 @@ def test_cli_profile_writes_a_trace(tmp_path):
     assert f"profiler trace -> {path}" in out
     trace = json.loads(path.read_text())
     assert trace["traceEvents"], "empty trace"
+    # the run's spans and counters, printed and written beside the trace
+    path = tmp_path / "spans_rank0_nproma16.json"
+    assert f"spans -> {path}" in out
+    spans = json.loads(path.read_text())
+    assert {"cloudsc.prepare", "cloudsc.shard", "cloudsc.warmup",
+            "cloudsc.loop", "cloudsc.ungroup", "cloudsc.fetch",
+            "cloudsc.step", "cloudsc.k1", "cloudsc.assemble"} \
+        <= set(spans["spans"])
+    assert spans["spans"]["cloudsc.step"]["calls"] == 2
+    assert spans["counters"]["columns"] == 2 * 100
+    assert re.search(r"^ cloudsc\.step +2 ", out, re.M)
+    assert f" ops.assemble = {spans['counters']['ops.assemble']}" in out
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"cloudsc.loop", "cloudsc.step", "cloudsc.k1"} <= names
 
 
 def test_cli_mesh_refused_under_ranks(monkeypatch, capsys):

@@ -32,11 +32,18 @@ from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
 from cloudsc_tpu_torch.kernels import cuda_probes as cp
 from cloudsc_tpu_torch.params import Params
 from cloudsc_tpu_torch.physics import scheme as tscheme
+from cloudsc_tpu_torch.runtime import tracing
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 FP64_TOL = 5.0e-14  # tests/test_golden.py, which imports JAX
+
+
+def _k1_counts():
+    """K1's launches by body: full, floor, init."""
+    return (tracing.counter("ops.k1"), tracing.counter("launches.k1.floor"),
+            tracing.counter("launches.k1.init"))
 
 
 def relerr(got, want):
@@ -94,12 +101,12 @@ def test_launch_count(snapshot, cuda):
     inp, params = snapshot
     step = cc.FusedStep(params, inp.ptsphy, torch.float32).to(cuda)
     p = cc.pack_inputs_folded(inp, params, dtype=torch.float32).to(cuda)
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     for _ in range(3):
         step(p)
     cc.cloudsc_fused_plain(p, step.c)
     torch.cuda.synchronize()
-    assert cc.LAUNCHES == before + 3
+    assert tracing.counter("ops.k1") == before + 3
 
 
 @pytest.mark.parametrize("order", ["grouped", "cyclic"])
@@ -116,11 +123,11 @@ def test_kernel_bitwise_equals_plain(cuda, ncol, dtype, order):
     c = tscheme.derived_consts(params, inp.ptsphy, dtype)
     p = cc.pack_inputs_folded(inp, params, dtype=dtype,
                               column_order=order).to(cuda)
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     got = cc.cloudsc_fused(p, c)
     want = cc.cloudsc_fused_plain(p, c)
     torch.cuda.synchronize()
-    assert cc.LAUNCHES == before + 1
+    assert tracing.counter("ops.k1") == before + 1
     for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
         assert a.shape == b.shape, name
         assert bool(torch.isfinite(a).all()), name
@@ -173,11 +180,11 @@ def test_cuda_pack_refuses_non_default_config(snapshot, cuda):
     cfg = tscheme.SchemeConfig(iwarmrain=1)
     c = tscheme.derived_consts(params, inp.ptsphy, torch.float32, cfg)
     p = cc.pack_inputs_folded(inp, params, cfg, dtype=torch.float32).to(cuda)
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     got = cc.cloudsc_fused(p, c)
     want = cc.cloudsc_fused_plain(p, c)
     torch.cuda.synchronize()
-    assert cc.LAUNCHES == before + 1
+    assert tracing.counter("ops.k1") == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     # every section tag is a build of its own; a tag no build knows is not
@@ -185,7 +192,7 @@ def test_cuda_pack_refuses_non_default_config(snapshot, cuda):
                                   tscheme.SchemeConfig(skip=("s99",)))
     with pytest.raises(ValueError, match="skip tags"):
         cc.cloudsc_fused(p, skip)
-    assert cc.LAUNCHES == before + 1
+    assert tracing.counter("ops.k1") == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -201,11 +208,11 @@ def test_version_build_bitwise_equals_plain(cuda, case, dtype):
     c = tscheme.derived_consts(params, inp.ptsphy, dtype, cfg)
     assert cc.kernel_version(c) != cc.DEFAULT_VERSION
     p = cc.pack_inputs_folded(inp, params, cfg, dtype=dtype).to(cuda)
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     got = cc.cloudsc_fused(p, c)
     want = cc.cloudsc_fused_plain(p, c)
     torch.cuda.synchronize()
-    assert cc.LAUNCHES == before + 1
+    assert tracing.counter("ops.k1") == before + 1
     for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
         assert bool(torch.isfinite(a).all()), name
         assert torch.equal(a, b), \
@@ -252,13 +259,13 @@ def test_diagnostic_bodies_match_plain(snapshot, cuda, mode, dtype):
     c = tscheme.derived_consts(params, inp.ptsphy, dtype)
     p = cc.pack_inputs_folded(inp, params, dtype=dtype,
                               column_order="cyclic").to(cuda)
-    before = (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES)
+    before = _k1_counts()
     got = cc.assemble(cc.cloudsc_fused(p, c, mode=mode), p, c)
     plain = cc.cloudsc_floor_plain(p) if mode == "floor" else \
         cc.cloudsc_init_plain(p, c)
     want = cc.assemble(plain, p, c)
     torch.cuda.synchronize()
-    after = (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES)
+    after = _k1_counts()
     assert after == (before[0], before[1] + (mode == "floor"),
                      before[2] + (mode == "init"))
     for name in want._fields:
@@ -289,11 +296,11 @@ def test_overlap_kernel_matches_plain(cuda, variant, mode, w, sb):
     x = torch.from_numpy(x).to(cuda)
     col = torch.rand(cp.COL_SHAPE, generator=torch.Generator().manual_seed(1)
                      ).to(cuda)
-    before = cp.OVERLAP_LAUNCHES
+    before = tracing.counter("launches.overlap")
     got = cp.overlap_step(x, col, variant, mode, w, sb)
     want = cp.overlap_plain(x, col, variant, mode, w, sb)
     torch.cuda.synchronize()
-    assert cp.OVERLAP_LAUNCHES == before + 1
+    assert tracing.counter("launches.overlap") == before + 1
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
         if a is not None:
@@ -337,10 +344,10 @@ def test_copy_kernel_matches_plain(cuda, k):
     x = torch.rand(probe.shape, device=cuda)
     want = cp.dma_copy_plain(x, col)
     for _ in range(5):
-        before = cp.COPY_LAUNCHES
+        before = tracing.counter("launches.copy")
         got = cp.dma_copy(x, col, probe)
         _sync_within()
-        assert cp.COPY_LAUNCHES == before + 1
+        assert tracing.counter("launches.copy") == before + 1
         assert torch.equal(got[0], want[0]), probe.name
         assert torch.equal(got[1], want[1]), probe.name
 
@@ -354,14 +361,14 @@ def test_copy_kernel_refuses_a_misaligned_view(cuda):
     col = torch.rand(cp.COL_SHAPE, device=cuda)
     x = base[1:n + 1].reshape(probe.shape)
     assert x.is_contiguous() and x.data_ptr() % 16
-    before = cp.COPY_LAUNCHES
+    before = tracing.counter("launches.copy")
     with pytest.raises(ValueError, match="16-byte aligned"):
         cp.dma_copy(x, col, probe)
-    assert cp.COPY_LAUNCHES == before
+    assert tracing.counter("launches.copy") == before
     aligned = base[4:n + 4].reshape(probe.shape)
     got, _ = cp.dma_copy(aligned, col, probe)
     _sync_within()
-    assert cp.COPY_LAUNCHES == before + 1
+    assert tracing.counter("launches.copy") == before + 1
     assert torch.equal(got, aligned * 1.0000001)
 
 
@@ -382,10 +389,10 @@ def test_copy_geometry(cuda):
 def test_probe_kernels_refuse_bad_arguments(cuda):
     x = torch.zeros((2, 40, 256), device=cuda)
     col = torch.zeros(cp.COL_SHAPE, device=cuda)
-    before = cp.OVERLAP_LAUNCHES
+    before = tracing.counter("launches.overlap")
     with pytest.raises(ValueError, match="built for"):
         cp.overlap_step(x, col, "plain", "full", 5, 1)
-    assert cp.OVERLAP_LAUNCHES == before
+    assert tracing.counter("launches.overlap") == before
     with pytest.raises(ValueError, match="probe takes"):
         cp.dma_copy(x, col, cp.contig_probe(32, 7))
 
@@ -402,10 +409,10 @@ def test_kernel_refuses_a_gradient_on_the_card(snapshot, cuda):
                         device="cuda", backend="cuda")
     p = drv.prepare(inp).to(cuda)
     p.pack.requires_grad_(True)
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     with pytest.raises(RuntimeError, match="--kernel scan"):
         cc.cloudsc_fused(p, drv.step.c, drv.step.consts)
-    assert cc.LAUNCHES == before
+    assert tracing.counter("ops.k1") == before
 
 
 def test_adjoint_of_expanded_columns_equals_source_columns(snapshot, cuda):
@@ -524,9 +531,10 @@ def test_mesh_on_one_card_bitwise_equals_one_device(cuda, backend):
                               backend=backend).run(inp)
     mesh = CloudscDriver(params, inp.ptsphy, torch.float64, backend=backend,
                          devices=["cuda", "cuda"])
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     two, _, timer = mesh.run(inp, iterations=2)
-    assert cc.LAUNCHES - before == (6 if backend == "cuda" else 0)
+    launched = tracing.counter("ops.k1") - before
+    assert launched == (6 if backend == "cuda" else 0)
     assert len(timer.device_cols) == 2 and sum(timer.device_cols) == 2 * 16387
     for name in one._fields:
         np.testing.assert_array_equal(getattr(two, name), getattr(one, name),
@@ -581,11 +589,11 @@ def test_form_build_bitwise_equals_plain(cuda, case, dtype):
                            **form).to(cuda)
     v = cc.kernel_version(c, p.form, fo)
     assert v != cc.DEFAULT_VERSION
-    cc.VERSION_LAUNCHES.clear()
+    tracing.reset()
     got = cc.cloudsc_fused(p, c, fold_outputs=fo)
     want = cc.cloudsc_fused_plain(p, c, fo)
     torch.cuda.synchronize()
-    assert dict(cc.VERSION_LAUNCHES) == {v: 1}
+    assert tracing.keyed("launches.k1.version") == {v: 1}
     ints = torch.int32 if dtype == torch.float32 else torch.int64
     for name, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got, want):
         # a build that skips sections is wrong physics by construction (set
@@ -639,10 +647,10 @@ def test_fields_entry_bitwise_on_the_card(cuda, dtype):
     dev = cc.pack_inputs(fields, params)
     assert torch.equal(dev.pack.cpu(), host.pack)
     v = cc.kernel_version(c, dev.form)
-    cc.VERSION_LAUNCHES.clear()
+    tracing.reset()
     got = cc.cloudsc_fused_fields(fields, params, inp.ptsphy)
     torch.cuda.synchronize()
-    assert dict(cc.VERSION_LAUNCHES) == {v: 1}
+    assert tracing.keyed("launches.k1.version") == {v: 1}
     p = host.to(cuda)
     want = cc.assemble(cc.cloudsc_fused(p, c), p, c)
     plain = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)

@@ -46,6 +46,7 @@ from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
 from cloudsc_tpu_torch.physics import cloudsc as tcloudsc
 from cloudsc_tpu_torch.physics import scheme as tscheme
 from cloudsc_tpu_torch import validate as tvalidate
+from cloudsc_tpu_torch.runtime import tracing
 
 from conftest import REFERENCE_DATA, relerr
 from test_golden import FP64_TOL
@@ -200,7 +201,7 @@ def test_plain_version_matches_pallas_fp64(case):
         p.pack.numpy(),
         np.asarray(jp["pack"]).reshape(p.pack.shape[0], len(p.rows), -1))
     out = cc.assemble(cc.cloudsc_fused(p, c), p, c)
-    assert cc.LAUNCHES == 0
+    assert tracing.counter("ops.k1") == 0
     out = type(ref)(*(a.numpy() for a in out))
     assert not _bad_fields(out, ref), f"{case}: {_bad_fields(out, ref)}"
 

@@ -43,12 +43,19 @@ from cloudsc_tpu_torch.kernels import build
 from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
 from cloudsc_tpu_torch.physics import satfold as tsatfold
 from cloudsc_tpu_torch.physics import scheme as tscheme
+from cloudsc_tpu_torch.runtime import tracing
 
 from conftest import REFERENCE_DATA, relerr
 from test_golden import FP64_TOL
 from test_pallas import _compare
 
 torch.set_num_threads(1)
+
+
+def _k1_counts():
+    """K1's launches by body: full, floor, init."""
+    return (tracing.counter("ops.k1"), tracing.counter("launches.k1.floor"),
+            tracing.counter("launches.k1.init"))
 
 
 def _inp(ngptot):
@@ -123,9 +130,9 @@ def test_diagnostic_bodies_match_pallas_interpret(mode, dtype):
     tdt = getattr(torch, dtype)
     p = cc.pack_inputs_folded(inp, params, dtype=tdt, column_order="cyclic")
     c = tscheme.derived_consts(params, inp.ptsphy, tdt)
-    before = (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES)
+    before = _k1_counts()
     out = cc.assemble(cc.cloudsc_fused(p, c, mode=mode), p, c)
-    assert (cc.LAUNCHES, cc.FLOOR_LAUNCHES, cc.INIT_LAUNCHES) == before
+    assert _k1_counts() == before
     out_np = type(ref)(*(a.numpy() for a in out))
     for name in ref._fields:
         assert getattr(out_np, name).shape == getattr(ref, name).shape, name
@@ -241,15 +248,15 @@ def test_plain_matches_pallas_interpret(dtype):
 
 def test_wrapper_takes_plain_version_on_cpu(plain_fp64_100):
     inp, p, c, want = plain_fp64_100
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     got = cc.assemble(cc.cloudsc_fused(p, c), p, c)
-    assert cc.LAUNCHES == before == 0
+    assert tracing.counter("ops.k1") == before == 0
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     step = cc.FusedStep(Params.from_input(inp), inp.ptsphy, torch.float64)
     for a, b in zip(cc.assemble(step(p), p, c), want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
-    assert cc.LAUNCHES == 0
+    assert tracing.counter("ops.k1") == 0
 
 
 def _c_enum(name: str) -> list:

@@ -40,6 +40,7 @@ import pytest
 import torch
 
 from cloudsc_tpu_torch.kernels import cuda_probes as cp
+from cloudsc_tpu_torch.runtime import tracing
 
 torch.set_num_threads(1)
 
@@ -88,10 +89,10 @@ def test_copy_plain_equals_jax_probe(bench_scripts, name):
                              interpret=True)
     want, want_col = (np.asarray(a) for a in fn(jnp.asarray(x),
                                                  jnp.asarray(col)))
-    before = cp.COPY_LAUNCHES
+    before = tracing.counter("launches.copy")
     got, got_col = cp.dma_copy(torch.from_numpy(x), torch.from_numpy(col),
                                probe)
-    assert cp.COPY_LAUNCHES == before
+    assert tracing.counter("launches.copy") == before
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got_col.numpy(), want_col)
 
@@ -427,9 +428,10 @@ def test_copy_args_refused_on_the_cpu():
         cp.check_copy_args(x, col, probe)
     odd = dataclasses.replace(probe, run_stride=probe.run_stride + 2)
     assert odd.run_stride % 4
-    before = cp.COPY_LAUNCHES
+    before = tracing.counter("launches.copy")
     got, _ = cp.dma_copy(x, col, odd)
-    assert cp.COPY_LAUNCHES == before and torch.equal(got, x * cp.MUL)
+    assert tracing.counter("launches.copy") == before
+    assert torch.equal(got, x * cp.MUL)
 
 
 # ---------------------------------------------------------------------------
@@ -462,11 +464,11 @@ def test_overlap_plain_equals_jax_probe(bench_scripts, variant, mode, w):
     fn = overlap_probe.make_fn(variant, mode, w, NI, NK2, RR, SB)
     args = (big, big, col) if variant in ("alias", "prod") else (big, col)
     want = [np.asarray(a) for a in fn(*(jnp.asarray(a) for a in args))]
-    before = cp.OVERLAP_LAUNCHES
+    before = tracing.counter("launches.overlap")
     out, colo, col_out = cp.overlap_step(cp.probe_from_jax(big),
                                          torch.from_numpy(col), variant,
                                          mode, w, SB)
-    assert cp.OVERLAP_LAUNCHES == before
+    assert tracing.counter("launches.overlap") == before
     np.testing.assert_array_equal(col_out.numpy(), want[-1])
     blk = SB * 128
     if mode == "full" and variant != "plain" and (variant == "branchy") \

@@ -38,6 +38,7 @@ from cloudsc_tpu.physics import make_inputs as jmake_inputs
 from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
 from cloudsc_tpu_torch.physics import cloudsc as tcloudsc
 from cloudsc_tpu_torch.physics import scheme as tscheme
+from cloudsc_tpu_torch.runtime import tracing
 
 from conftest import REFERENCE_DATA
 
@@ -63,10 +64,10 @@ def _compare(ref, out, rtol):
 
 def _plain(p, c, fold_outputs=True):
     """The plain version on pack `p`, assembled, as numpy."""
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     out = cc.assemble(cc.cloudsc_fused(p, c, fold_outputs=fold_outputs), p,
                       c, fold_outputs)
-    assert cc.LAUNCHES == before
+    assert tracing.counter("ops.k1") == before
     return type(out)(*(a.numpy() for a in out))
 
 
@@ -264,11 +265,11 @@ def test_fields_entry_bitwise_equals_unfolded_pack(params, dtype):
     assert torch.equal(dev.pack, host.pack) and torch.equal(dev.col, host.col)
     c = tscheme.derived_consts(params, inp.ptsphy, tdt)
     want = _plain(host, c)
-    before = cc.LAUNCHES
+    before = tracing.counter("ops.k1")
     got = cc.cloudsc_fused_fields(fields, params, inp.ptsphy)
     step = cc.FusedStep(params, inp.ptsphy, tdt)
     got_step = cc.assemble(step(fields), fields, step.c)
-    assert cc.LAUNCHES == before
+    assert tracing.counter("ops.k1") == before
     for name, a, b, s in zip(want._fields, got, want, got_step):
         np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
         np.testing.assert_array_equal(s.numpy(), b, err_msg=name)
