@@ -55,9 +55,16 @@ failed check (the script then exits non-zero and prints no result):
      on the driver's pack the build against its plain version, all three
      buffers bit for bit (NaNs included: skipped sections are wrong physics
      by construction), its time and the plain version's;
+  1g. the flux rows' kernel (`csrc/foldo.cu`, `foldo_synthesize`) against
+     its plain loop at 163,840 x 137, fp64 and fp32, all four rows bit for
+     bit, from the driver's pack (strided rows) and from a field dict
+     expanded on the card (contiguous), PFPLSL/N the strided views of K1's
+     o_half; one `launches.foldo` a call, read from the registry; its time
+     beside its bound and the loop's;
   2. the main path in fp32 (`python -m cloudsc_tpu_torch 1 163840 128`'s
      driver calls, outputs left on the card): launch counts reset just
-     before, read just after; the perf table; validation on the card
+     before, read just after (K1 1 + ITERATIONS, the flux rows' kernel
+     once, in the run's `assemble`); the perf table; validation on the card
      (`validate.device_field_norms` against the reference expanded there)
      within test_golden's FP32_TOL per field;
   3. the main path in fp64 at the same size, validated on the card: every
@@ -184,6 +191,14 @@ FP32_TOL = {
 KERNEL_SOURCE = "cloudsc_tpu_torch/csrc/cloudsc_fused.cu"
 KERNEL_REPLACES = "cloudsc_tpu/kernels/pallas_cloudsc.py:977"
 PROBES_SOURCE = "cloudsc_tpu_torch/csrc/probes.cu"
+FOLDO_SOURCE = "cloudsc_tpu_torch/csrc/foldo.cu"
+# the flux rows' kernel replaces no TPU kernel: the JAX package rebuilds the
+# rows in a lax.scan outside pallas_call
+FOLDO_REPLACES = "none (cloudsc_tpu/kernels/pallas_cloudsc.py:1525, lax.scan)"
+# a column's rows: PAPH, PFPLSL, PFPLSN (nlev+1 each) and PVFL, PVFI (nlev)
+# read, the four rows (nlev+1 each) written; a level's operations: ZGDPH_R's
+# three, two each for the sums' terms and adds, the two scalings
+FOLDO_FLOP_PER_LEVEL = 11
 # K2's bar against its plain version, max-abs/max-ref
 OVERLAP_TOL = 1e-6
 # the bound's model (cloudsc_tpu_torch/bench/timing.py: the H100 SXM's
@@ -420,6 +435,68 @@ def phase1_ragged(params):
                                    f"{float((a - b).abs().max()):.3e})")
         print(f"phase 1 {tag} at {RAGGED_NCOL} columns: kernel == plain "
               f"version bit for bit on all three buffers")
+
+
+def phase_foldo(inp, params):
+    """The flux rows' kernel against its plain loop at NGPTOT columns, fp64
+    and fp32, from the driver's pack and from a field dict expanded on the
+    card, PFPLSL/N the views of K1's o_half: all four rows bit for bit, one
+    launch a call. Returns per dtype (kernel ms over ITERATIONS calls on
+    the field dict, the pack's, the loop's ms a call, (bound ms, by), the
+    lab's launches: two checked calls and the timing loops, the largest
+    |kernel - loop| over the rows compared)."""
+    import torch
+
+    from cloudsc_tpu_torch.bench import timing
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+    from cloudsc_tpu_torch.runtime import tracing
+    from cloudsc_tpu_torch.runtime.driver import CloudscDriver
+
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        driver = CloudscDriver(params, inp.ptsphy, dtype=dtype, device="cuda")
+        c = driver.step.c
+        p = driver.prepare(inp).to("cuda")
+        o_half = cc.cloudsc_fused(p, c, driver.step.consts)[1]
+        half = {n: o_half[:, j] for j, n in enumerate(cc.ohalf_rows(True))}
+        fields = fields_on_device(inp, dtype, "cuda")
+        ms, err = {}, 0.0
+        launches = tracing.counter("launches.foldo")
+        for kind, src in (("pack", p), ("fields", fields)):
+            got, want = dict(half), dict(half)
+            before = tracing.counter("launches.foldo")
+            cc.foldo_synthesize(got, src, c)
+            rose = tracing.counter("launches.foldo") - before
+            if rose != 1:
+                raise RuntimeError(f"{tag} {kind}: launches.foldo rose by "
+                                   f"{rose}")
+            cc.foldo_synthesize_plain(want, src, c)
+            for name in cc.FOLDO_ROWS:
+                a, b = got[name], want[name]
+                if a.shape == b.shape:
+                    err = max(err, float((a - b).abs().max()))
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise RuntimeError(
+                        f"{tag} {kind} {name}: kernel != plain loop (max abs "
+                        f"err {float((a - b).abs().max()):.3e})")
+            ms[kind] = _event_ms(lambda: cc.foldo_synthesize(dict(half), src,
+                                                             c), ITERATIONS)
+            print(f"phase 1g {tag} {kind}: the flux rows' kernel == plain "
+                  f"loop bit for bit on all four rows")
+        plain_ms = _event_ms(lambda: cc.foldo_synthesize_plain(
+            dict(half), fields, c), 3)
+        nlev, size = inp.klev, p.pack.element_size()
+        nbytes = (3 * (nlev + 1) + 2 * nlev + 4 * (nlev + 1)) * NGPTOT * size
+        bound = timing.bound(nbytes, FOLDO_FLOP_PER_LEVEL * nlev * NGPTOT,
+                             tag)
+        launches = tracing.counter("launches.foldo") - launches
+        results[tag] = (ms["fields"], ms["pack"], plain_ms, bound, launches,
+                        err)
+        del p, o_half, half, fields, got, want
+        torch.cuda.empty_cache()
+    return results
 
 
 def phase1a_diagnostic_bodies(inp, params):
@@ -1098,8 +1175,9 @@ def _check_bars(tag, errs):
 def phase_main_path(inp, params, dtype, ref_dev):
     """The main path's driver calls, outputs left on the card and validated
     there; in fp64 also fetched once and validated on the host, whose norms
-    must equal the card's. Returns (launches, timings, wall s of
-    driver.run, card validation s, host validation s or None)."""
+    must equal the card's. Returns (K1's launches, the flux rows' kernel's
+    launches, timings, wall s of driver.run, card validation s, host
+    validation s or None)."""
     import numpy as np
     import torch
 
@@ -1124,6 +1202,10 @@ def phase_main_path(inp, params, dtype, ref_dev):
     if launches != 1 + ITERATIONS:
         raise RuntimeError(f"{tag} main path: {launches} kernel launches, "
                            f"expected {1 + ITERATIONS}")
+    foldo_launches = tracing.counter("launches.foldo")
+    if foldo_launches != 1:
+        raise RuntimeError(f"{tag} main path: the flux rows' kernel launched "
+                           f"{foldo_launches} times, expected once")
     timer.print_performance(NPROMA, ngpblks, NGPTOT, numomp=1,
                             iterations=ITERATIONS)
     print(f" device compute: {timings.compute_s * 1e3:9.3f} ms | h2d:"
@@ -1166,7 +1248,8 @@ def phase_main_path(inp, params, dtype, ref_dev):
     print(f"phase main path {tag}: 21 fields within "
           f"{'FP64_TOL' if tag == 'fp64' else 'FP32_TOL'}, validated on the "
           f"card, {launches} launches, flagged {sorted(flagged)}")
-    return launches, timings, run_s, validate_s, host_validate_s
+    return launches, foldo_launches, timings, run_s, validate_s, \
+        host_validate_s
 
 
 def phase_scan(inp, params, ref_dev):
@@ -1886,14 +1969,15 @@ def main() -> int:
     phase1_ragged(params)
     vk = phase1d_versions(inp, params, versions)
     fk = phase_forms(params, forms)
+    foldo = phase_foldo(inp, params)
     k2_err, k2_times, (k2_ms, k2_plain_ms, k2_bound) = phase1b_overlap_probe()
     k3 = phase1c_copy_probe()
     ref_dev = reference_on_device(data.default_reference_path(), NGPTOT,
                                   "cuda")
-    launches, t32, run32, val32, _ = phase_main_path(inp, params,
-                                                     torch.float32, ref_dev)
-    _, t64, run64, val64, host_val64 = phase_main_path(inp, params,
-                                                       torch.float64, ref_dev)
+    launches, foldo32, t32, run32, val32, _ = phase_main_path(
+        inp, params, torch.float32, ref_dev)
+    _, foldo64, t64, run64, val64, host_val64 = phase_main_path(
+        inp, params, torch.float64, ref_dev)
     torch.cuda.empty_cache()
     t_scan, run_scan, t_scan_packed = phase_scan(inp, params, ref_dev)
     fmain = phase_form_main_path(inp, params, ref_dev)
@@ -2017,6 +2101,14 @@ def main() -> int:
               f"{r['pack_s']:.3f} s (prepare, host clock), h2d "
               f"{r['h2d_s']:.3f} s, driver.run {r['run_s']:.3f} s; flagged "
               f"{r['flagged']}")
+    for tag, (ms, pack_ms, plain_ms, (bound_ms, bound_by), _, _) in \
+            foldo.items():
+        print(f"timing foldo {tag} [{card}]: the flux rows' kernel "
+              f"{ms:.4f} ms on the field dict, {pack_ms:.4f} ms on the "
+              f"driver's pack (CUDA events over {ITERATIONS} calls at "
+              f"{NGPTOT} x {nlev}); bound {bound_ms:.4f} ms (by {bound_by}) "
+              f"= {bound_ms / ms:.3f} of the kernel's time; plain loop "
+              f"{plain_ms:.4f} ms (3 calls)")
     print(f"timing layouts fp32 [{card}]: driver loop "
           + ", ".join(f"{k} {v:.4f} ms/step" for k, v in layouts.items())
           + f" at {NGPTOT} columns")
@@ -2155,6 +2247,18 @@ def main() -> int:
                 "ncol": NGPTOT, "launches": fentry["launches"],
                 "ms": fentry["ms"], "device_pack_ms": fentry["pack_ms"]}
         entries.append(entry)
+    ms, pack_ms, plain_ms, (bound_ms, bound_by), lab_f, err_f = foldo["fp32"]
+    ms64, pack64, plain64, (bound64, by64), lab64, err64 = foldo["fp64"]
+    entries.append({
+        "name": "foldo_synthesize", "route": "cuda", "source": FOLDO_SOURCE,
+        "replaces": FOLDO_REPLACES, "launches": foldo32,
+        "lab_launches": lab_f, "max_abs_err": err_f, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "pack_ms": pack_ms,
+        "fp64": {"launches": foldo64, "lab_launches": lab64,
+                 "max_abs_err": err64, "ms": ms64, "pack_ms": pack64,
+                 "plain_ms": plain64, "bound_ms": bound64,
+                 "bound_by": by64}})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

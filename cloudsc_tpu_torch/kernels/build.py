@@ -14,9 +14,11 @@ sweep: `bench/ring_sweep.py`), K1's version as -D macros
 (`cuda_cloudsc.KernelVersion`: the scheme version, the pack's form, the
 skipped sections and the skip switches) and K3's ring geometry as -D macros
 (`cuda_probes.COPY_RING`, read when the flags are made). The default build
-holds every source with the reference configuration on the main path's
-form; another version builds K1's source alone into its own directory at
-first use. A failed build raises.
+holds every source but `ALONE`'s with the reference configuration on the
+main path's form; another version builds K1's source alone into its own
+directory at first use, and `csrc/foldo.cu` (the flux rows' kernel, which
+no version changes) builds only alone, into its own at first use, so one
+library serves it under every version. A failed build raises.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ LIB_NAME = "libcloudsc_kernels.so"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
-_vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_vp, _i, _ll, _d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_double)
 _STEP_ARGS = [_vp] * 6 + [_i] * 3 + [_vp]
 # every C entry point of the library and its argument types (pointers and
 # the stream as void*, 64-bit offsets as long long); each returns the
@@ -51,7 +54,15 @@ ENTRY_POINTS = {
     "copy_probe": [_vp] * 4 + [_i, _i, _ll, _i, _ll, _ll, _i, _vp],
     # (int out[9]): K3's geometry and occupancy on the current device
     "copy_probe_geometry": [_vp],
+    # the five input rows, their level strides, the output buffer, nlev,
+    # ncol, the five constants (rounded to the type in the entry), stream
+    **{f"cloudsc_foldo_{t}": [_vp] * 5 + [_ll] * 5 + [_vp, _i, _i]
+       + [_d] * 5 + [_vp] for t in ("f32", "f64")},
 }
+
+# sources that build only alone, into a library of their own, and the entry
+# points they hold, which the default library lacks
+ALONE = {"foldo.cu": ("cloudsc_foldo_f32", "cloudsc_foldo_f64")}
 
 # loaded libraries by (geometry, sources, scheme version); (None, None,
 # None) is the default build
@@ -89,8 +100,10 @@ def nvcc_flags(ring=None, version=None) -> tuple:
 
 
 def _sources(sources=None) -> list[Path]:
-    """The .cu files to compile: all of csrc/, or `sources`."""
-    return sorted(sources) if sources else sorted(CSRC.glob("*.cu"))
+    """The .cu files to compile: all of csrc/ but `ALONE`'s, or
+    `sources`."""
+    return sorted(sources) if sources else \
+        sorted(p for p in CSRC.glob("*.cu") if p.name not in ALONE)
 
 
 def _version_sources(sources, version):
@@ -266,15 +279,17 @@ def build(verbose: bool = True, ring=None, sources=None,
 def load_library(ring=None, sources=None, version=None):
     """The built library with its C entry points declared (builds on first
     use); `ring`, `sources` and `version` as for `build`. A library built
-    from some of the sources declares the entry points it has."""
+    from some of the sources declares the entry points it has; the default
+    one all but `ALONE`'s."""
     sources, version = _version_sources(sources, version)
     key = (ring,
            tuple(sorted(map(str, sources))) if sources else None, version)
     if key in _libs:
         return _libs[key]
     lib = ctypes.CDLL(str(build(ring=ring, sources=sources, version=version)))
+    alone = {n for names in ALONE.values() for n in names}
     for name, argtypes in ENTRY_POINTS.items():
-        if sources and not hasattr(lib, name):
+        if (sources or name in alone) and not hasattr(lib, name):
             continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes

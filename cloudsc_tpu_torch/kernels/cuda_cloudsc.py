@@ -40,7 +40,10 @@ The step records its layers there too: `FusedStep.forward` is the span
 lookup); `assemble` is `cloudsc.assemble`, around `cloudsc.foldo`. Each
 layer counts the device operations it issues, each a kernel, copy or fill
 (`ops.pack`, `ops.k1`, `ops.assemble`), the step its `columns`, the pack
-the bytes it writes (`pack_bytes`). On the card PyTorch cuts a copy into a
+the bytes it writes (`pack_bytes`). On the card `foldo_synthesize` writes
+the four folded-out flux rows in one launch of `csrc/foldo.cu`
+(`launches.foldo`), a library of its own; on the CPU its plain version
+adds them level by level. On the card PyTorch cuts a copy into a
 view that spans more than 2**31 bytes into several launches, which the
 count does not see (the device pack's row copies at full width).
 
@@ -59,6 +62,7 @@ configuration and pack run.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -989,13 +993,11 @@ def _flux_inputs(src):
     return src["paph"], src["pvfl"], src["pvfi"]
 
 
-def foldo_synthesize(half: dict, src, c) -> None:
-    """Rebuild the four folded-out flux rows (pallas_cloudsc.
-    _foldo_synthesize) from `src`, the step's pack or field dict:
-    PFHPSL/N = -RLVTT/RLSTT x PFPLSL/N (ref: cloudsc.F90: 2864-2865);
-    PFSQLTUR/ITUR the running sums of PVFL/PVFI*PTSPHY*ZGDPH_R (ref:
-    2812-2857), added level by level in order — `torch.cumsum`'s parallel
-    scan would reorder the additions."""
+def foldo_synthesize_plain(half: dict, src, c) -> None:
+    """The plain version of `foldo_synthesize`, on whatever device `src`
+    is on: PFHPSL/N one multiply each, PFSQLTUR/ITUR added level by level
+    in order — `torch.cumsum`'s parallel scan would reorder the
+    additions."""
     half["pfhpsl"] = -c.RLVTT * half["pfplsl"]
     half["pfhpsn"] = -c.RLSTT * half["pfplsn"]
     paph, pvfl, pvfi = _flux_inputs(src)
@@ -1011,6 +1013,77 @@ def foldo_synthesize(half: dict, src, c) -> None:
     # the two scalings, ZGDPH_R's three, and a row's two products, its
     # zeros and an add and a copy a level
     tracing.count("ops.assemble", 5 + 2 * (3 + 2 * (paph.shape[0] - 1)))
+
+
+# the rows csrc/foldo.cu writes, in the order of its output planes
+FOLDO_ROWS = ("pfhpsl", "pfhpsn", "pfsqltur", "pfsqitur")
+
+
+def check_foldo_args(paph, pvfl, pvfi, pfplsl, pfplsn) -> None:
+    """Raise ValueError unless the rows are what csrc/foldo.cu takes: one
+    type, fp32 or fp64; PAPH, PFPLSL and PFPLSN (nlev+1, ncol), PVFL and
+    PVFI (nlev, ncol); contiguous columns (any level stride); all on one
+    CUDA device."""
+    rows = {"paph": paph, "pvfl": pvfl, "pvfi": pvfi, "pfplsl": pfplsl,
+            "pfplsn": pfplsn}
+    if paph.dtype not in (torch.float32, torch.float64) \
+            or any(r.dtype != paph.dtype for r in rows.values()):
+        raise ValueError("the flux rows must share one type, fp32 or fp64: "
+                         + ", ".join(f"{n} {r.dtype}"
+                                     for n, r in rows.items()))
+    nlev, ncol = paph.shape[0] - 1, paph.shape[-1]
+    for name, r in rows.items():
+        want = (nlev if name in ("pvfl", "pvfi") else nlev + 1, ncol)
+        if tuple(r.shape) != want:
+            raise ValueError(f"{name} {tuple(r.shape)}: expected {want} "
+                             f"(paph {tuple(paph.shape)})")
+        if r.stride(1) != 1:
+            raise ValueError(f"{name}: the columns must be contiguous "
+                             f"(strides {r.stride()})")
+    if paph.device.type != "cuda" \
+            or any(r.device != paph.device for r in rows.values()):
+        raise ValueError("the kernel needs the flux rows on one CUDA device: "
+                         + ", ".join(f"{n} {r.device}"
+                                     for n, r in rows.items()))
+
+
+@functools.cache
+def _foldo_entry(dtype):
+    """csrc/foldo.cu's entry point for `dtype`, from its own library (built
+    at first use, whatever K1's version), looked up once."""
+    from . import build
+
+    t = "f32" if dtype == torch.float32 else "f64"
+    lib = build.load_library(sources=[build.CSRC / "foldo.cu"])
+    return getattr(lib, f"cloudsc_foldo_{t}")
+
+
+def foldo_synthesize(half: dict, src, c) -> None:
+    """Rebuild the four folded-out flux rows (pallas_cloudsc.
+    _foldo_synthesize) from `src`, the step's pack or field dict:
+    PFHPSL/N = -RLVTT/RLSTT x PFPLSL/N (ref: cloudsc.F90: 2864-2865);
+    PFSQLTUR/ITUR the running sums of PVFL/PVFI*PTSPHY*ZGDPH_R (ref:
+    2812-2857). On the card one launch of csrc/foldo.cu writes the four
+    rows, bit for bit with the plain version (or raises,
+    `check_foldo_args`); on the CPU the plain version runs."""
+    paph, pvfl, pvfi = _flux_inputs(src)
+    if paph.device.type == "cpu":
+        foldo_synthesize_plain(half, src, c)
+        return
+    rows = (paph, pvfl, pvfi, half["pfplsl"], half["pfplsn"])
+    check_foldo_args(*rows)
+    nlev, ncol = pvfl.shape
+    out = paph.new_empty((len(FOLDO_ROWS), nlev + 1, ncol))
+    fn = _foldo_entry(paph.dtype)
+    with torch.cuda.device(paph.device):
+        rc = fn(*(r.data_ptr() for r in rows), *(r.stride(0) for r in rows),
+                out.data_ptr(), nlev, ncol, -c.zrg_r, c.zqtmst, c.ptsphy,
+                -c.RLVTT, -c.RLSTT, torch.cuda.current_stream().cuda_stream)
+    tracing.count("ops.assemble")
+    tracing.count("launches.foldo")
+    if rc != 0:
+        raise RuntimeError(f"cloudsc_foldo launch failed: CUDA error {rc}")
+    half.update(zip(FOLDO_ROWS, out))
 
 
 def assemble(res, src, c, fold_outputs: bool = True) -> CloudscOutputs:

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: each against its plain PyTorch version on
 the same inputs, their launch counts (K1's three bodies, the overlap probe,
 the copy probe), K1's occupancy, each scheme version's and each form's
-build of K1, the column layouts after the ungroup, and the validation
-norms reduced on the card against the host's. Every test
+build of K1, the column layouts after the ungroup, the validation
+norms reduced on the card against the host's, and the flux rows' kernel
+(csrc/foldo.cu) against its plain loop, bit for bit. Every test
 needs a CUDA device and skips without one (marker `cuda`). The module imports no JAX, so that it
 also runs on a GPU host without it, where the repo's conftest (which
 imports JAX) is left out:
@@ -672,3 +673,64 @@ def test_scan_pack_bitwise_on_the_card(cuda):
     got = cloudsc(scan_pack(fields, params, inp.ptsphy), params, inp.ptsphy)
     for name, a, b in zip(want._fields, got, want):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["pack", "fields"])
+@pytest.mark.parametrize("ncol", [16387, 16384])
+def test_foldo_kernel_bitwise_equals_plain(cuda, ncol, kind, dtype):
+    """csrc/foldo.cu against the plain loop on the card, all four rows bit
+    for bit: from a folded pack (strided rows) or a field dict expanded on
+    the card (contiguous rows), with PFPLSL/N the strided views of K1's
+    o_half, at a ragged and a whole-block column count; one launch a call,
+    counted in `launches.foldo` and `ops.assemble`."""
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    inp = tdata.load_input(tdata.default_input_path(), ncol)
+    params = Params.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    if kind == "pack":
+        src = p = cc.pack_inputs_folded(inp, params, dtype=dtype).to(cuda)
+        assert src.pack[:, src.row("paph")].stride(0) == len(src.rows) * ncol
+    else:
+        src = fields_on_device(inp, dtype, cuda)
+        p = cc.pack_inputs(src, params)
+        assert src["pvfl"].is_contiguous()
+    o_half = cc.cloudsc_fused(p, c)[1]
+    half = {n: o_half[:, j] for j, n in enumerate(cc.ohalf_rows(True))}
+    assert half["pfplsl"].stride(0) == o_half.shape[1] * ncol
+    got, want = dict(half), dict(half)
+    counts = ("launches.foldo", "ops.assemble")
+    before = [tracing.counter(n) for n in counts]
+    cc.foldo_synthesize(got, src, c)
+    assert [tracing.counter(n) - b for n, b in zip(counts, before)] == [1, 1]
+    cc.foldo_synthesize_plain(want, src, c)
+    torch.cuda.synchronize()
+    assert tracing.counter("launches.foldo") == before[0] + 1
+    for name in cc.FOLDO_ROWS:
+        a, b = got[name], want[name]
+        assert a.shape == b.shape == (inp.klev + 1, ncol), name
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_step_device_ops_on_the_card(cuda, dtype):
+    """The resident step on the card (a field dict, the device pack, K1,
+    `assemble`) issues 60 device operations: the pack's 56, K1's one and
+    `assemble`'s 3 (the flux rows' one launch, the cloud tendencies' zeros
+    and stack); `launches.foldo` counts one launch a step."""
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    inp = tdata.load_input(tdata.default_input_path(), 16387)
+    params = Params.from_input(inp)
+    fields = fields_on_device(inp, dtype, cuda)
+    step = cc.FusedStep(params, inp.ptsphy, dtype).to(cuda)
+    cc.assemble(step(fields), fields, step.c)  # builds and warms up
+    tracing.reset()
+    for _ in range(2):
+        cc.assemble(step(fields), fields, step.c)
+    torch.cuda.synchronize()
+    assert [tracing.counter(n) for n in ("ops.pack", "ops.k1",
+                                         "ops.assemble")] == [112, 2, 6]
+    assert tracing.counter("launches.foldo") == 2

@@ -224,8 +224,10 @@ def test_device_ops_repeat_over_seeds_and_precisions(tiny):
             cc.assemble(step(fields), fields, step.c)
             per_step.add(_step_ops() - before)
     assert len(per_step) == 1
-    # the pack's 53 copies, 2 casts and stack; the flux rows' 559 and
-    # the cloud tendencies' 2 (K1 launches nothing on the CPU)
+    # the pack's 53 copies, 2 casts and stack; the flux rows' 559 (the
+    # CPU path's plain loop: on the card csrc/foldo.cu is one launch, and a
+    # step issues 60, tests/test_torch_cuda.py) and the cloud tendencies' 2
+    # (K1 launches nothing on the CPU)
     assert per_step == {56 + 561}
 
 
