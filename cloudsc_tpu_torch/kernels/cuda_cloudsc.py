@@ -40,7 +40,9 @@ The step records its layers there too: `FusedStep.forward` is the span
 lookup); `assemble` is `cloudsc.assemble`, around `cloudsc.foldo`. Each
 layer counts the device operations it issues, each a kernel, copy or fill
 (`ops.pack`, `ops.k1`, `ops.assemble`), the step its `columns`, the pack
-the bytes it writes (`pack_bytes`). On the card `foldo_synthesize` writes
+the bytes it writes (`pack_bytes`). On the card `FEED` counts, a card at
+a time, the steps that found the card's queue already drained (`feed.dry`
+of `feed.issues`, `Feed`). On the card `foldo_synthesize` writes
 the four folded-out flux rows in one launch of `csrc/foldo.cu`
 (`launches.foldo`), a library of its own; on the CPU its plain version
 adds them level by level. On the card PyTorch cuts a copy into a
@@ -1103,6 +1105,7 @@ def assemble(res, src, c, fold_outputs: bool = True) -> CloudscOutputs:
         tcld = torch.stack([lev[f"tcld{m}"] for m in range(4)]
                            + [torch.zeros_like(lev["tcld0"])])
         tracing.count("ops.assemble", 2)
+        FEED.issued(o_lev.device)
         return CloudscOutputs(
             plude=lev["plude"], pcovptot=lev["pcovptot"],
             prainfrac_toprfz=o_prainfrac,
@@ -1116,6 +1119,54 @@ def assemble(res, src, c, fold_outputs: bool = True) -> CloudscOutputs:
             tendency_loc_t=lev["tend_t"], tendency_loc_q=lev["tend_q"],
             tendency_loc_a=lev["tend_a"], tendency_loc_cld=tcld,
         )
+
+
+class Feed:
+    """Whether the host keeps each card fed. Where the port finishes
+    issuing a step's work on a card (after K1 in `FusedStep.forward`, and
+    again after `assemble` where it runs) it records the card's event on
+    the card's current stream; when `FusedStep.forward` begins the card's
+    next step it queries that event without blocking and counts
+    `feed.issues`, and `feed.dry` where the event has completed: the card
+    ran out of the port's work before the host gave it more. Both keyed by
+    the card's index, in `runtime.tracing`. Each card has one event, made
+    at its first record and recorded again each time (a record replaces
+    the last one's state), so a step costs one query and one or two
+    records, with no sync and no allocation. Nothing is counted on the
+    CPU, nor while a profiler records (the step's record is dropped then,
+    so the next step is not held against a traced one). `event` makes a
+    card's event (`torch.cuda.Event`, timing off)."""
+
+    def __init__(self, event=torch.cuda.Event):
+        self.event = event
+        self.events: dict = {}   # card index -> its event
+        self.last: dict = {}     # card index -> its event, once recorded
+
+    def issued(self, dev: torch.device) -> None:
+        if dev.type != "cuda":
+            return
+        if tracing.profiling():
+            self.last.pop(dev.index, None)
+            return
+        ev = self.events.get(dev.index)
+        if ev is None:
+            ev = self.events[dev.index] = self.event()
+        ev.record(torch.cuda.current_stream(dev))
+        self.last[dev.index] = ev
+
+    def check(self, dev: torch.device) -> None:
+        if dev.type != "cuda":
+            return
+        ev = self.last.pop(dev.index, None)
+        if ev is None or tracing.profiling():
+            return
+        tracing.count("feed.issues", key=dev.index)
+        if ev.query():
+            tracing.count("feed.dry", key=dev.index)
+
+
+# the process's feed: the cards' queues are the process's
+FEED = Feed()
 
 
 class FusedStep(torch.nn.Module):
@@ -1150,13 +1201,17 @@ class FusedStep(torch.nn.Module):
         with tracing.span("cloudsc.step"):
             if isinstance(x, FoldedPack):
                 p = x
+                FEED.check(p.pack.device)
             else:
+                FEED.check(x["pt"].device)
                 with tracing.span("cloudsc.pack"):
                     p = pack_inputs(x, self.params, self.config, self.ptsphy)
             tracing.count("columns", p.ncol)
             with tracing.span("cloudsc.k1"):
-                return cloudsc_fused(p, self.c, self.consts_on(p.pack.device),
-                                     fold_outputs=self.fold_outputs)
+                res = cloudsc_fused(p, self.c, self.consts_on(p.pack.device),
+                                    fold_outputs=self.fold_outputs)
+            FEED.issued(p.pack.device)
+            return res
 
 
 def cloudsc_fused_fields(fields: dict, params, ptsphy, config=None,

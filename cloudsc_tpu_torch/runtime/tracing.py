@@ -43,6 +43,11 @@ RING = 8192
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
 
 
+def profiling() -> bool:
+    """Whether a `torch.profiler` session is recording."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 class Span:
     """One pass through a layer: a context manager that records itself in
     its registry on exit. `seconds` is its duration."""
@@ -58,7 +63,7 @@ class Span:
         stack = self._registry.stack
         self.parent = stack[-1] if stack else None
         stack.append(self.name)
-        self.profiled = _autograd_profiler._is_profiler_enabled
+        self.profiled = profiling()
         self._range = None
         if self.profiled and _RANGE is not None:
             self._range = _RANGE(self.name)
