@@ -87,12 +87,17 @@ failed check (the script then exits non-zero and prints no result):
      the driver's pack, K1 timed beside the reference build on the same
      input (two windows each, alternating, the least of each's), the host
      pack and H2D;
-  3p. the per-field entry in fp32 at the same size: the main path with
-     CLOUDSC_PACKED_STORAGE=0 (the field dict packed on the card each
-     step) with the per-version counts reset and read, bit for bit with
-     the CLOUDSC_FOLD_INPUTS=0 main path and with
+  3p. the per-field entry at the same size: in fp32 the main path with
+     CLOUDSC_PACKED_STORAGE=0 (the field dict on the card, read in place
+     by the unfolded build) with the per-version and in-place counts reset
+     and read (every launch in place), bit for bit with the
+     CLOUDSC_FOLD_INPUTS=0 main path (none in place) and with
      `cuda_cloudsc.cloudsc_fused_fields` on the card's field dict; the
-     device pack's time beside K1's;
+     device pack's time beside K1's; in fp32 and fp64
+     `cuda_cloudsc.cloudsc_fused_rows` (the Rows policy) on the card's field
+     dict bit for bit with the plain version on `pack_inputs` of it, its
+     time beside its bound (a `cloudsc_fused_rows` row in the kernel
+     table);
   3l. the main path in fp32 in the cyclic (CLOUDSC_GROUP_COLUMNS=0) and the
      grouped unsorted (CLOUDSC_GROUP_SORT=0) layouts: every field equal to
      the sorted main path's bit for bit after the ungroup;
@@ -982,16 +987,23 @@ def phase_form_main_path(inp, params, ref_dev):
 
 
 def phase_fields_entry(inp, params):
-    """The per-field entry in fp32 at NGPTOT columns: the main path with
-    CLOUDSC_PACKED_STORAGE=0 (the field dict on the card, packed there each
-    step, unfolded) with the per-version counts reset just before and read
-    just after (the unfolded build alone), every field equal bit for bit
-    to the CLOUDSC_FOLD_INPUTS=0 main path's (the host's unfolded pack)
-    after the ungroup, and `cloudsc_fused_fields` on `fields_on_device`'s
-    dict equal bit for bit to both; then the device pack's time and K1's on
-    it (CUDA events). Returns a record."""
+    """The per-field entry at NGPTOT columns. In fp32 the main path with
+    CLOUDSC_PACKED_STORAGE=0 (the field dict on the card, read in place by
+    the unfolded build) with the counters reset just before and read just
+    after (the unfolded build alone, every launch counted in
+    `launches.k1.in_place`; the host-packed CLOUDSC_FOLD_INPUTS=0 main path
+    none), every field equal bit for bit to the CLOUDSC_FOLD_INPUTS=0 main
+    path's (the host's unfolded pack) after the ungroup, and
+    `cloudsc_fused_fields` on `fields_on_device`'s dict equal bit for bit
+    to both; then the device pack's time and K1's on it (CUDA events). In
+    fp32 and fp64 `cloudsc_fused_rows` (the Rows policy) on the card's
+    field dict against `cloudsc_fused_plain` on `pack_inputs` of the same
+    dict, all three buffers bit for bit, with its time beside its bound.
+    Returns a record."""
     import torch
 
+    from cloudsc_tpu_torch.bench import timing
+    from cloudsc_tpu_torch.bench.kernel_lab import same_bits
     from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
     from cloudsc_tpu_torch.runtime import tracing
@@ -1004,16 +1016,20 @@ def phase_fields_entry(inp, params):
             tracing.reset()
             out, t, _ = driver.run(inp, iterations=ITERATIONS,
                                    fetch_outputs=False)
-        return driver, out, t, tracing.keyed("launches.k1.version")
+        return driver, out, t, tracing.keyed("launches.k1.version"), \
+            tracing.counter("launches.k1.in_place")
 
-    driver, fields_out, t_fields, launches = run(
+    driver, fields_out, t_fields, launches, in_place = run(
         {"CLOUDSC_PACKED_STORAGE": "0"})
-    v = cc.kernel_version(driver.step.c, {"fold_inputs": False, "fn": False})
-    if launches != {v: 1 + ITERATIONS} or driver.config_name("cuda") != \
-            "cuda/fields+unfold+foldo":
-        raise RuntimeError(f"per-field main path: launches {launches}, "
-                           f"{driver.config_name('cuda')}")
-    _, pack_out, t_pack, _ = run({"CLOUDSC_FOLD_INPUTS": "0"})
+    v = cc.kernel_version(driver.step.c, cc.UNFOLDED_FORM)
+    if launches != {v: 1 + ITERATIONS} or in_place != launches[v] or \
+            driver.config_name("cuda") != "cuda/fields+unfold+foldo":
+        raise RuntimeError(f"per-field main path: launches {launches}, in "
+                           f"place {in_place}, {driver.config_name('cuda')}")
+    _, pack_out, t_pack, _, pack_in_place = run({"CLOUDSC_FOLD_INPUTS": "0"})
+    if pack_in_place != 0:
+        raise RuntimeError(f"the host-packed main path read {pack_in_place} "
+                           f"steps in place")
     fields = fields_on_device(inp, torch.float32, "cuda")
     entry_out = cc.cloudsc_fused_fields(fields, params, inp.ptsphy)
     for f, a, b, e in zip(pack_out._fields, fields_out, pack_out, entry_out):
@@ -1026,17 +1042,63 @@ def phase_fields_entry(inp, params):
                                                inp.ptsphy), ITERATIONS)
     p = cc.pack_inputs(fields, params, None, inp.ptsphy)
     ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
-    rec = dict(launches=launches[v], pack_ms=pack_ms, ms=ms,
-               pack_gb=p.pack.numel() * p.pack.element_size() / 1e9,
+    rec = dict(launches=launches[v], in_place=in_place, pack_ms=pack_ms,
+               ms=ms, pack_gb=p.pack.numel() * p.pack.element_size() / 1e9,
                driver_ms=t_fields.compute_s * 1e3,
                unfolded_driver_ms=t_pack.compute_s * 1e3)
     print(f"phase fields entry fp32: the per-field main path "
-          f"({launches[v]} launches of the unfolded build), "
-          f"cloudsc_fused_fields and the unfolded pack's main path equal bit "
-          f"for bit on all 21 fields; device pack {pack_ms:.4f} ms "
-          f"({rec['pack_gb']:.3f} GB), K1 on it {ms:.4f} ms")
+          f"({launches[v]} launches of the unfolded build, {in_place} in "
+          f"place), cloudsc_fused_fields and the unfolded pack's main path "
+          f"(none in place) equal bit for bit on all 21 fields; device pack "
+          f"{pack_ms:.4f} ms ({rec['pack_gb']:.3f} GB), K1 on it "
+          f"{ms:.4f} ms")
     del fields, p
     torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.float64):
+        tag = "fp64" if dtype == torch.float64 else "fp32"
+        d = CloudscDriver(params, inp.ptsphy, dtype=dtype, device="cuda")
+        c, consts = d.step.c, d.step.consts
+        fields = fields_on_device(inp, dtype, "cuda")
+        if not cc.rows_in_place(fields, c):
+            raise RuntimeError(f"{tag}: the card's field dict is not read "
+                               f"in place")
+        p = cc.pack_inputs(fields, params, None, inp.ptsphy)
+        tracing.reset()
+        got = cc.cloudsc_fused_rows(fields, c, consts)
+        counted = (tracing.counter("launches.k1.in_place"),
+                   tracing.counter("ops.pack"))
+        if counted != (1, 0):
+            raise RuntimeError(f"{tag}: cloudsc_fused_rows counted "
+                               f"(in place, ops.pack) {counted}")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = cc.cloudsc_fused_plain(p, c)
+        stop.record()
+        stop.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        max_abs = 0.0
+        for bname, a, b in zip(("o_lev", "o_half", "o_prainfrac"), got,
+                               want):
+            max_abs = max(max_abs, float((a.double() - b.double()).abs()
+                                         .max()))
+            if not bool(torch.isfinite(a).all()) or not same_bits(a, b):
+                raise RuntimeError(f"{tag} {bname}: cloudsc_fused_rows != "
+                                   f"the plain version on the unfolded pack "
+                                   f"(max abs err {max_abs:.3e})")
+        del got, want
+        rows_ms = _event_ms(lambda: cc.cloudsc_fused_rows(fields, c, consts),
+                            ITERATIONS)
+        bound = timing.bound(cc.k1_bytes(p),
+                             timing.K1_FLOP_PER_COLUMN * NGPTOT, tag)
+        rec[tag] = dict(max_abs=max_abs, ms=rows_ms, plain_ms=plain_ms,
+                        bound=bound)
+        print(f"phase fields entry {tag}: cloudsc_fused_rows == the plain "
+              f"version on pack_inputs of the same dict bit for bit on all "
+              f"three buffers; {rows_ms:.4f} ms, bound {bound[0]:.4f} ms (by "
+              f"{bound[1]}) = {bound[0] / rows_ms:.3f} of its time")
+        del fields, p, d
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -2051,8 +2113,16 @@ def main() -> int:
           f"{fentry['pack_ms']:.4f} ms ({fentry['pack_gb']:.3f} GB copied), "
           f"K1 on it {fentry['ms']:.4f} ms (CUDA events over {ITERATIONS} "
           f"calls); driver loop with CLOUDSC_PACKED_STORAGE=0 "
-          f"{fentry['driver_ms']:.4f} ms/step (pack + K1), with "
+          f"{fentry['driver_ms']:.4f} ms/step (K1 in place), with "
           f"CLOUDSC_FOLD_INPUTS=0 {fentry['unfolded_driver_ms']:.4f} ms/step")
+    for tag in ("fp32", "fp64"):
+        r = fentry[tag]
+        print(f"timing K1 in place {tag} [{card}]: cloudsc_fused_rows "
+              f"{r['ms']:.4f} ms/step on the field dict (CUDA events over "
+              f"{ITERATIONS} launches at {NGPTOT} columns); bound "
+              f"{r['bound'][0]:.4f} ms (by {r['bound'][1]}) = "
+              f"{r['bound'][0] / r['ms']:.3f} of the kernel's time; plain "
+              f"version {r['plain_ms']:.1f} ms (1 call)")
     print(f"timing adjoint fp64 [{card}]: d(scalar head)/d(pt) at {NGPTOT} "
           f"columns {adj_s:.3f} s in {adj_blocks} blocks, peak "
           f"{adj_peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
@@ -2247,6 +2317,19 @@ def main() -> int:
                 "ncol": NGPTOT, "launches": fentry["launches"],
                 "ms": fentry["ms"], "device_pack_ms": fentry["pack_ms"]}
         entries.append(entry)
+    # K1's Rows policy on the field dict: the per-field main path's launches
+    # (each read in place), fp32 in the common keys, fp64 beside
+    r32, r64 = fentry["fp32"], fentry["fp64"]
+    entries.append({
+        "name": "cloudsc_fused_rows", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+        "launches": fentry["in_place"],
+        "max_abs_err": max(r32["max_abs"], r64["max_abs"]),
+        "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+        "bound_ms": r32["bound"][0], "bound_by": r32["bound"][1],
+        "library_ms": None,
+        "fp64": {"ms": r64["ms"], "plain_ms": r64["plain_ms"],
+                 "bound_ms": r64["bound"][0], "bound_by": r64["bound"][1]}})
     ms, pack_ms, plain_ms, (bound_ms, bound_by), lab_f, err_f = foldo["fp32"]
     ms64, pack64, plain64, (bound64, by64), lab64, err64 = foldo["fp64"]
     entries.append({

@@ -61,6 +61,30 @@
 // warps an SM on an H100; the stream then hides under the compute, and the
 // body's own instruction stream sets the pace.
 //
+// Two addressing policies feed the ring, one body for both (a template
+// parameter of fused_kernel; only the ring's source addresses and the four
+// per-column reads differ, so the arithmetic, the schedule and the register
+// budget are the same):
+//   Pack  the pack above and `col` (PLSM, LDCUM, KTYPE as the pack's type,
+//         then the surface pressure): row r of level lev at
+//         pack + (lev*nrows + r)*ncol + j. Every entry point but the rows'
+//         reads it, and the floor and init bodies read nothing else.
+//   Rows  a plain field dict read where it lies, with no pack: a table of
+//         R_COUNT row base pointers and each row's height h_r (nlev, or
+//         nlev+1 for PAPH), passed by value in the kernel's parameter space
+//         (the constant bank: no device array, no copy, no extra operation
+//         a step). Row r of level lev is at p[r] + min(lev, h_r - 1)*ncol + j:
+//         clamping the level reads, at level nlev, the same values the pack's
+//         edge-replicated row nlev holds. PLSM is read in the working type,
+//         LDCUM as a byte (!= 0), KTYPE as int32, the surface pressure at
+//         PAPH's level nlev. Only the unfolded build has it (the unfolded
+//         pack's rows are fields; a folded row is not), as the C entries
+//         cloudsc_fused_rows_{f32,f64}; kernels/cuda_cloudsc.py launches it
+//         for a field dict on the card whose rows are contiguous (h_r, ncol)
+//         tensors of the working type (`rows_in_place`).
+// A warp's copies coalesce alike from either source: every row of both is
+// a run of ncol columns.
+//
 // Beside it, the TPU kernel's two diagnostic bodies (floor_kernel,
 // init_kernel; see below), which split the step's time into stream and
 // compute. They keep their direct loads and 128-thread blocks.
@@ -96,7 +120,7 @@ constexpr int RING_MIN_BLOCKS = CLOUDSC_RING_MIN_BLOCKS;
 static_assert(RING_S >= 3,
               "levels k and k+1 are read while level k+S-1 is in flight");
 
-// dynamic shared memory of one block of fused_kernel<T>: the ring
+// dynamic shared memory of one block of fused_kernel<T, *>: the ring
 template <typename T> constexpr int ring_bytes() {
   return RING_S * R_COUNT * RING_BLOCK * int(sizeof(T));
 }
@@ -117,13 +141,34 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T>
+// K1's addressing policies (see the top of the file), a template parameter
+// of fused_kernel: the ring's copy of row r of level `lev` of column j and
+// the four per-column values come from the `pack` and `col` parameters
+// (Pack, a tag), or from the table `rows` (Rows). `KIND` indexes the
+// once-flags of configure_fused. The pack's pointers stay plain
+// __restrict__ parameters, so the Pack policy builds as the kernel did
+// before it had a policy.
+struct Pack {
+  static constexpr int KIND = 0;
+};
+
+template <typename T> struct Rows {
+  static constexpr int KIND = 1;
+  const T* p[R_COUNT];  // row r's (h[r], ncol) field, columns innermost
+  int h[R_COUNT];       // its height: nlev, or nlev+1 (PAPH)
+  const T* plsm;
+  const unsigned char* ldcum;  // a bool a column
+  const int* ktype;
+};
+
+template <typename T, typename Src>
 __global__ void __launch_bounds__(RING_BLOCK, RING_MIN_BLOCKS)
 fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
              const double* __restrict__ kd, T* __restrict__ o_lev,
              T* __restrict__ o_half, T* __restrict__ o_prainfrac, int nlev,
-             int ncol, int nrows) {
+             int ncol, int nrows, const Src rows) {
   constexpr int S = RING_S, BLOCK = RING_BLOCK, D = S - 1;
+  constexpr bool PACKED = Src::KIND == Pack::KIND;
   // the constants, cast to the working precision once per block
   __shared__ T K[C_COUNT];
   extern __shared__ __align__(16) unsigned char ring_smem[];
@@ -141,13 +186,32 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   // this thread's slots: row r of stage s at mine[(s*R_COUNT + r)*BLOCK]
   T* const mine = reinterpret_cast<T*>(ring_smem) + threadIdx.x;
   // copy level `lev`'s rows into stage lev % S; one group a level, empty
-  // past the last level, so group g always holds level g
+  // past the last level, so group g always holds level g. Rows: a row's
+  // level clamped to its height, so level nlev of a per-level row reads
+  // its level nlev-1, as the pack's edge-replicated row holds it. Every
+  // row is nlev or nlev+1 levels high (launch_rows), so the clamp acts at
+  // level nlev alone: below it a row's address is its base plus one
+  // offset a level, as cheap as the pack's (the branch is the same for
+  // every thread)
   auto fetch = [&](int lev) {
     if (lev <= nlev) {
-      const T* src = pack + size_t(lev) * nrows * n + j;
       T* dst = mine + (lev % S) * R_COUNT * BLOCK;
+      if constexpr (PACKED) {
+        const T* src = pack + size_t(lev) * nrows * n + j;
 #pragma unroll
-      for (int r = 0; r < R_COUNT; ++r) cp_async(dst + r * BLOCK, src + r * n);
+        for (int r = 0; r < R_COUNT; ++r)
+          cp_async(dst + r * BLOCK, src + r * n);
+      } else if (lev < nlev) {
+        const size_t off = size_t(lev) * n + j;
+#pragma unroll
+        for (int r = 0; r < R_COUNT; ++r)
+          cp_async(dst + r * BLOCK, rows.p[r] + off);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R_COUNT; ++r)
+          cp_async(dst + r * BLOCK,
+                   rows.p[r] + size_t(min(lev, rows.h[r] - 1)) * n + j);
+      }
     }
     cp_async_commit();
   };
@@ -157,10 +221,23 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   };
   for (int lev = 0; lev < D; ++lev) fetch(lev);
 
-  const T plsm = col[0 * n + j];
-  const bool ldcum = col[1 * n + j] > T(0.5);
-  const int ktype = int(col[2 * n + j]);
-  const T paph_surf = col[3 * n + j];
+  T plsm, paph_surf;
+  bool ldcum;
+  int ktype;
+  if constexpr (PACKED) {
+    plsm = col[0 * n + j];
+    ldcum = col[1 * n + j] > T(0.5);
+    ktype = int(col[2 * n + j]);
+    paph_surf = col[3 * n + j];
+  } else {
+    // through the read-only path, as the pack's const __restrict__ col is
+    // read: the compiler may then load a value again where it is used
+    // rather than hold it in a register through the level loop
+    plsm = __ldg(rows.plsm + j);
+    ldcum = __ldg(rows.ldcum + j) != 0;
+    ktype = __ldg(rows.ktype + j);
+    paph_surf = __ldg(rows.p[R_PAPH] + size_t(nlev) * n + j);
+  }
 
   Carry<T> cr;
   cr.zanewm1 = Z;
@@ -387,31 +464,45 @@ init_kernel(const T* __restrict__ pack, const T* __restrict__ col,
   o_prainfrac[j] = v;
 }
 
-// fused_kernel<T> may take more than the default 48 KB of dynamic shared
+// fused_kernel may take more than the default 48 KB of dynamic shared
 // memory. The attribute belongs to the function on each device: it is set
-// once a device and precision, and later calls return that first call's
-// result. The flags have internal linkage: a template's static locals would
-// be one object across every library of the process (GNU unique symbols),
-// and each scheme version's library has a fused_kernel of its own to set.
+// once a device, precision and addressing policy, and later calls return
+// that first call's result. The flags have internal linkage: a template's
+// static locals would be one object across every library of the process
+// (GNU unique symbols), and each scheme version's library has a
+// fused_kernel of its own to set.
 constexpr int MAX_DEVICES = 64;
 
 namespace {
-std::once_flag configured[2][MAX_DEVICES];
-cudaError_t configure_result[2][MAX_DEVICES];
+std::once_flag configured[2][2][MAX_DEVICES];
+cudaError_t configure_result[2][2][MAX_DEVICES];
 }  // namespace
 
-template <typename T> cudaError_t configure_fused() {
-  constexpr int t = sizeof(T) == sizeof(double);
+template <typename T, typename Src> cudaError_t configure_fused() {
+  constexpr int a = Src::KIND, t = sizeof(T) == sizeof(double);
   int dev = 0;
   const cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  std::call_once(configured[t][dev], [dev] {
-    configure_result[t][dev] = cudaFuncSetAttribute(
-        fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  std::call_once(configured[a][t][dev], [dev] {
+    configure_result[a][t][dev] = cudaFuncSetAttribute(
+        fused_kernel<T, Src>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         ring_bytes<T>());
   });
-  return configure_result[t][dev];
+  return configure_result[a][t][dev];
+}
+
+template <typename T, typename Src>
+int launch_fused(const T* pack, const T* col, const Src& rows,
+                 const double* consts, T* o_lev, T* o_half, T* o_prainfrac,
+                 int nlev, int ncol, int nrows, cudaStream_t s) {
+  const cudaError_t e = configure_fused<T, Src>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fused_kernel<T, Src><<<(ncol + RING_BLOCK - 1) / RING_BLOCK, RING_BLOCK,
+                         ring_bytes<T>(), s>>>(pack, col, consts, o_lev,
+                                               o_half, o_prainfrac, nlev,
+                                               ncol, nrows, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 enum Body { FULL, FLOOR, INIT };
@@ -425,11 +516,8 @@ int launch(const T* pack, const T* col, const double* consts, T* o_lev,
   if (ncol <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if constexpr (B == FULL) {
-    const cudaError_t e = configure_fused<T>();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    fused_kernel<T><<<(ncol + RING_BLOCK - 1) / RING_BLOCK, RING_BLOCK,
-                      ring_bytes<T>(), s>>>(
-        pack, col, consts, o_lev, o_half, o_prainfrac, nlev, ncol, nrows);
+    return launch_fused<T>(pack, col, Pack{}, consts, o_lev, o_half,
+                           o_prainfrac, nlev, ncol, nrows, s);
   } else {
     const int grid = (ncol + DIAG_BLOCK - 1) / DIAG_BLOCK;
     if constexpr (B == FLOOR)
@@ -442,20 +530,48 @@ int launch(const T* pack, const T* col, const double* consts, T* o_lev,
   return static_cast<int>(cudaGetLastError());
 }
 
-// What fused_kernel<T> runs with on the current device: out[0] blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] dynamic shared
-// memory bytes a block, out[2..4] S, BLOCK and MIN_BLOCKS, out[5]
+// The Rows policy's launch: `rows` and `heights` are host arrays of nrows
+// entries, copied into the kernel's parameters. Refuses another row set, a
+// height other than nlev or nlev+1, a PAPH without its surface level nlev,
+// and a null source.
+template <typename T>
+int launch_rows(const void* const* rows, const int* heights, const T* plsm,
+                const unsigned char* ldcum, const int* ktype,
+                const double* consts, T* o_lev, T* o_half, T* o_prainfrac,
+                int nlev, int ncol, int nrows, void* stream) {
+  if (nrows != R_COUNT || heights[R_PAPH] != nlev + 1 || !plsm || !ldcum ||
+      !ktype)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Rows<T> table;
+  for (int r = 0; r < R_COUNT; ++r) {
+    if (!rows[r] || heights[r] < nlev || heights[r] > nlev + 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    table.p[r] = static_cast<const T*>(rows[r]);
+    table.h[r] = heights[r];
+  }
+  table.plsm = plsm;
+  table.ldcum = ldcum;
+  table.ktype = ktype;
+  if (ncol <= 0) return 0;
+  return launch_fused<T>(nullptr, nullptr, table, consts, o_lev, o_half,
+                         o_prainfrac, nlev, ncol, nrows,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// What fused_kernel<T, Src> runs with on the current device: out[0] blocks
+// an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] dynamic
+// shared memory bytes a block, out[2..4] S, BLOCK and MIN_BLOCKS, out[5]
 // registers a thread, out[6] local memory bytes a thread (stack and
 // spills), the last two from cudaFuncGetAttributes.
-template <typename T> int occupancy(int* out) {
-  cudaError_t e = configure_fused<T>();
+template <typename T, typename Src> int occupancy(int* out) {
+  cudaError_t e = configure_fused<T, Src>();
   if (e != cudaSuccess) return static_cast<int>(e);
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fused_kernel<T>, RING_BLOCK, ring_bytes<T>());
+      &blocks, fused_kernel<T, Src>, RING_BLOCK, ring_bytes<T>());
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, fused_kernel<T>);
+  e = cudaFuncGetAttributes(&attr, fused_kernel<T, Src>);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = blocks;
   out[1] = ring_bytes<T>();
@@ -491,8 +607,46 @@ CLOUDSC_ENTRY(cloudsc_init_f64, double, INIT)
 // cloudsc_fused_occupancy_{f32,f64}(int out[7]) -> cudaError_t; see
 // cloudsc::occupancy
 extern "C" int cloudsc_fused_occupancy_f32(int* out) {
-  return cloudsc::occupancy<float>(out);
+  return cloudsc::occupancy<float, cloudsc::Pack>(out);
 }
 extern "C" int cloudsc_fused_occupancy_f64(int* out) {
-  return cloudsc::occupancy<double>(out);
+  return cloudsc::occupancy<double, cloudsc::Pack>(out);
 }
+
+#if !CLOUDSC_FOLD_INPUTS
+// The full body reading a field dict in place (the Rows policy), in the
+// unfolded build only: cloudsc_fused_rows_{f32,f64}(rows, heights, plsm,
+// ldcum, ktype, consts, o_lev, o_half, o_prainfrac, nlev, ncol, nrows,
+// stream) -> cudaError_t of the launch, `rows` (void*[nrows]) and `heights`
+// (int[nrows]) host arrays in the pack's row order; and
+// cloudsc_fused_rows_occupancy_{f32,f64}(int out[7]).
+extern "C" int cloudsc_fused_rows_f32(const void* const* rows,
+                                      const int* heights, const float* plsm,
+                                      const unsigned char* ldcum,
+                                      const int* ktype, const double* consts,
+                                      float* o_lev, float* o_half,
+                                      float* o_prainfrac, int nlev, int ncol,
+                                      int nrows, void* stream) {
+  return cloudsc::launch_rows<float>(rows, heights, plsm, ldcum, ktype,
+                                     consts, o_lev, o_half, o_prainfrac, nlev,
+                                     ncol, nrows, stream);
+}
+extern "C" int cloudsc_fused_rows_f64(const void* const* rows,
+                                      const int* heights, const double* plsm,
+                                      const unsigned char* ldcum,
+                                      const int* ktype, const double* consts,
+                                      double* o_lev, double* o_half,
+                                      double* o_prainfrac, int nlev, int ncol,
+                                      int nrows, void* stream) {
+  return cloudsc::launch_rows<double>(rows, heights, plsm, ldcum, ktype,
+                                      consts, o_lev, o_half, o_prainfrac,
+                                      nlev, ncol, nrows, stream);
+}
+
+extern "C" int cloudsc_fused_rows_occupancy_f32(int* out) {
+  return cloudsc::occupancy<float, cloudsc::Rows<float>>(out);
+}
+extern "C" int cloudsc_fused_rows_occupancy_f64(int* out) {
+  return cloudsc::occupancy<double, cloudsc::Rows<double>>(out);
+}
+#endif

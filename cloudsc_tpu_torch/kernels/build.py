@@ -50,6 +50,12 @@ ENTRY_POINTS = {
        for body in ("fused", "floor", "init") for t in ("f32", "f64")},
     # (int out[7]): K1's occupancy and geometry on the current device
     **{f"cloudsc_fused_occupancy_{t}": [_vp] for t in ("f32", "f64")},
+    # K1 on a field dict read in place (the unfolded build's only): the
+    # host arrays of row pointers and heights, plsm, ldcum, ktype, consts,
+    # the three outputs, nlev, ncol, nrows, stream; and its occupancy
+    **{f"cloudsc_fused_rows_{t}": [_vp] * 9 + [_i] * 3 + [_vp]
+       for t in ("f32", "f64")},
+    **{f"cloudsc_fused_rows_occupancy_{t}": [_vp] for t in ("f32", "f64")},
     "overlap_probe": [_vp] * 5 + [_i] * 7 + [_vp],
     "copy_probe": [_vp] * 4 + [_i, _i, _ll, _i, _ll, _ll, _i, _vp],
     # (int out[9]): K3's geometry and occupancy on the current device
@@ -63,6 +69,10 @@ ENTRY_POINTS = {
 # sources that build only alone, into a library of their own, and the entry
 # points they hold, which the default library lacks
 ALONE = {"foldo.cu": ("cloudsc_foldo_f32", "cloudsc_foldo_f64")}
+# the entry points only the unfolded build of K1 holds
+# (`KernelVersion.fold_inputs` False): the Rows policy reads the fields
+UNFOLDED_ONLY = tuple(n for n in ENTRY_POINTS
+                      if n.startswith("cloudsc_fused_rows_"))
 
 # loaded libraries by (geometry, sources, scheme version); (None, None,
 # None) is the default build
@@ -132,9 +142,12 @@ _TYPES = {"f": "f32", "d": "f64"}
 def kernel_key(mangled: str) -> str:
     """A mangled kernel name -> its key: the innermost name without
     `_kernel`, then its template arguments, a float type as f32/f64 and an
-    integer as its value: `fused_kernel<float>` -> 'fused_f32',
+    integer as its value: `fused_kernel<float>` and `fused_kernel<float,
+    Pack>` (K1's Pack policy, a tag) -> 'fused_f32', `fused_kernel<double,
+    Rows<double>>` (its Rows policy) -> 'fused_f64_rows',
     `floor_kernel<double>` -> 'floor_f64', `overlap_kernel<3, 8>` ->
-    'overlap_3_8', `copy_kernel` -> 'copy'. Other names stay as they are."""
+    'overlap_3_8', `copy_kernel` -> 'copy'. Other names stay as they
+    are."""
     if not mangled.startswith("_Z"):
         return mangled
     pos = 3 if mangled.startswith("_ZN") else 2
@@ -149,12 +162,13 @@ def kernel_key(mangled: str) -> str:
         return mangled
     parts = [name.removesuffix("_kernel")]
     if mangled.startswith("I", pos):
-        args = mangled[pos + 1:]
-        for tok in re.finditer(r"Li(-?\d+)E|([fd])(?=[ELI])", args):
+        args, rows = re.subn(r"NS_4RowsI[fd]EE", "", mangled[pos + 1:], 1)
+        for tok in re.finditer(r"Li(-?\d+)E|([fd])(?=[ELIN])", args):
             parts.append(tok.group(1) if tok.group(1) is not None
                          else _TYPES[tok.group(2)])
             if args[tok.end():].startswith("EE"):
                 break
+        parts += ["rows"] * rows
     return "_".join(parts)
 
 
@@ -289,7 +303,8 @@ def load_library(ring=None, sources=None, version=None):
     lib = ctypes.CDLL(str(build(ring=ring, sources=sources, version=version)))
     alone = {n for names in ALONE.values() for n in names}
     for name, argtypes in ENTRY_POINTS.items():
-        if (sources or name in alone) and not hasattr(lib, name):
+        if (sources or name in alone or name in UNFOLDED_ONLY) \
+                and not hasattr(lib, name):
             continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -23,6 +23,17 @@ The pack states its own layout — its row names, whether it is folded
 (`fold_inputs`) and which optional rows it streams (`fc`, `fn`, `fd`) — so
 no consumer infers it from a row count.
 
+K1 has two addressing policies, one body (csrc/cloudsc_fused.cu): `Pack`
+reads such a pack, and `Rows` reads a plain field dict on the card where it
+lies, with no pack: a table of the unfolded rows' base pointers and heights
+(`row_table`) in the kernel's parameters, row r of level lev read at level
+min(lev, h_r - 1) — the clamp gives at level nlev the values of the pack's
+edge-replicated row — and PLSM, LDCUM and KTYPE in their own dtypes.
+`FusedStep` reads a dict in place (`cloudsc_fused_rows`) when it is on a
+CUDA card and `rows_in_place` holds (contiguous `(h, ncol)` rows of the
+working dtype on one device, the flags bool and int32); any other dict is
+packed on its device first (`pack_inputs`).
+
 `cloudsc_fused` launches the kernel for a CUDA pack (or raises) and runs
 `cloudsc_fused_plain` — a level loop over `physics.scheme` on `(ncol,)` rows
 that mirrors the Pallas `_kernel` / `_sub_level` / `_write_level_rows` — for a
@@ -35,14 +46,18 @@ measurement lab), with plain versions `cloudsc_floor_plain` /
 body's by build (keyed by `KernelVersion`).
 
 The step records its layers there too: `FusedStep.forward` is the span
-`cloudsc.step`, around `cloudsc.pack` (the device pack of a field dict,
-`pack_inputs`) and `cloudsc.k1` (the launch with its checks and library
-lookup); `assemble` is `cloudsc.assemble`, around `cloudsc.foldo`. Each
-layer counts the device operations it issues, each a kernel, copy or fill
-(`ops.pack`, `ops.k1`, `ops.assemble`), the step its `columns`, the pack
-the bytes it writes (`pack_bytes`). On the card `FEED` counts, a card at
-a time, the steps that found the card's queue already drained (`feed.dry`
-of `feed.issues`, `Feed`). On the card `foldo_synthesize` writes
+`cloudsc.step`, around the layout check and row table of a dict on the
+card, `cloudsc.pack` (the device pack of a field dict, `pack_inputs`,
+where it is not read in place) and `cloudsc.k1` (the launch with its
+checks and library lookup); `assemble` is
+`cloudsc.assemble`, around `cloudsc.foldo`. Each layer counts the device
+operations it issues, each a kernel, copy or fill (`ops.pack`, `ops.k1`,
+`ops.assemble`), the step its `columns`, the pack the bytes it writes
+(`pack_bytes`); `launches.k1.in_place` counts the full-body launches that
+read a field dict in place (no pack: `ops.pack` and `pack_bytes` count
+nothing for them). On the card `FEED` counts, a card at a time, the steps
+that found the card's queue already drained (`feed.dry` of `feed.issues`,
+`Feed`). On the card `foldo_synthesize` writes
 the four folded-out flux rows in one launch of `csrc/foldo.cu`
 (`launches.foldo`), a library of its own; on the CPU its plain version
 adds them level by level. On the card PyTorch cuts a copy into a
@@ -63,6 +78,7 @@ configuration and pack run.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import os
@@ -603,9 +619,9 @@ def pack_inputs(fields: dict, params, config=None, ptsphy=None,
     `fold=True` (needs `ptsphy`) folds at the fields' dtype, in the
     environment's form (`fold_flags`: fc, fn, fd), the optional rows
     computed in fp64 on the host from the fields as the JAX function
-    computes them. The unfolded pack (the step's) counts its device
-    operations in `ops.pack`; both count the bytes they write in
-    `pack_bytes`."""
+    computes them. The unfolded pack (the step's, where K1 cannot read the
+    dict in place: `FusedStep`) counts its device operations in
+    `ops.pack`; both count the bytes they write in `pack_bytes`."""
     pt = fields["pt"]
     dtype, dev = pt.dtype, pt.device
     nlev, ncol = pt.shape
@@ -778,28 +794,149 @@ def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
     return o_lev, o_half, o_prainfrac
 
 
+# the in-place input's per-column rows and their dtypes (None: the working
+# dtype); the surface pressure is PAPH's level nlev
+FLAG_DTYPES = (("plsm", None), ("ldcum", torch.bool), ("ktype", torch.int32))
+# the form of the build that reads a field dict: the unfolded rows
+UNFOLDED_FORM = {"fold_inputs": False, "fn": False}
+
+
+def row_table(fields: dict, c) -> list:
+    """K1's input rows as a plain field dict holds them: [(name, tensor)]
+    in the unfolded pack's order (`pack_rows(fold_inputs=False,
+    aer=aer_rows(c))`), each the field's own tensor or its species slice
+    (`_unfolded_source`), `(h, ncol)`: h = nlev, or nlev+1 for PAPH. The
+    Rows policy of csrc/cloudsc_fused.cu reads row r of level lev at level
+    min(lev, h - 1), the values the pack's edge-replicated row nlev
+    holds."""
+    out = []
+    for name in pack_rows(fn=False, aer=aer_rows(c), fold_inputs=False):
+        field, m = _unfolded_source(name)
+        t = fields[field]
+        out.append((name, t if m is None else t[m]))
+    return out
+
+
+def _in_place_table(fields: dict, c):
+    """(`row_table(fields, c)`, None) where K1 can read `fields` in place
+    (`rows_in_place`), else (None, why not)."""
+    pt = fields.get("pt")
+    if not torch.is_tensor(pt) or pt.ndim != 2:
+        return None, "pt is not an (nlev, ncol) tensor"
+    if c.dtype not in (torch.float32, torch.float64):
+        return None, f"constants {c.dtype}: one of fp32/fp64"
+    (nlev, ncol), dev = pt.shape, pt.device
+    try:
+        table = row_table(fields, c)
+    except KeyError as e:
+        return None, f"no field {e}"
+    for name, t in table:
+        shape = (nlev + (name == "paph"), ncol)
+        if t.dtype != c.dtype or t.device != dev \
+                or tuple(t.shape) != shape or t.stride() != (ncol, 1):
+            return None, (f"{name}: {t.dtype} {tuple(t.shape)} strides "
+                          f"{t.stride()} on {t.device}; wanted {c.dtype} "
+                          f"{shape} strides {(ncol, 1)} on {dev}")
+    for name, dtype in FLAG_DTYPES:
+        t, dtype = fields.get(name), dtype or c.dtype
+        if not torch.is_tensor(t) or t.dtype != dtype or t.device != dev \
+                or tuple(t.shape) != (ncol,) or t.stride() != (1,):
+            return None, (f"{name}: wanted a contiguous ({ncol},) {dtype} "
+                          f"on {dev}")
+    return table, None
+
+
+def rows_in_place(fields: dict, c) -> bool:
+    """Whether K1 can read the plain field dict `fields` where it lies
+    (`cloudsc_fused_rows`), for `derived_consts` `c` of fp32 or fp64: every
+    row of `row_table` a contiguous `(h, ncol)` tensor, strides (ncol, 1),
+    of the working dtype (`c.dtype`); PLSM a contiguous `(ncol,)` of that
+    dtype, LDCUM bool and KTYPE int32; all on one device. Layout only: the
+    device is not asked for."""
+    return _in_place_table(fields, c)[1] is None
+
+
+def cloudsc_fused_rows(fields: dict, c, consts: torch.Tensor | None = None,
+                       fold_outputs: bool = True):
+    """One CLOUDSC step on a plain field dict on the card, read in place:
+    the unfolded build's Rows policy, whose ring fetches each row from its
+    field through a table of row base pointers and heights
+    (`row_table`) in the kernel's parameters, and the per-column inputs in
+    their own dtypes; no pack, no copy, one launch. Returns the buffers
+    `cloudsc_fused` returns, equal bit for bit to the unfolded build's on
+    `pack_inputs(fields)`. Raises ValueError for a dict `rows_in_place`
+    refuses, off a CUDA device, or a configuration `check_kernel_config`
+    refuses; refuses an input that requires grad (`refuse_grad`). Launches
+    the unfolded build of `c`'s configuration and output rows. Counts
+    `ops.k1`, `launches.k1.version` and `launches.k1.in_place`."""
+    table, why = _in_place_table(fields, c)
+    if why is not None:
+        raise ValueError(f"K1 cannot read the field dict in place: {why}")
+    if fields["pt"].device.type != "cuda":
+        raise ValueError("the CUDA kernel needs the fields on a CUDA device")
+    return _launch_rows(table, fields, c, consts, fold_outputs)
+
+
+def _launch_rows(table: list, fields: dict, c, consts, fold_outputs: bool):
+    """`cloudsc_fused_rows` on a CUDA dict's `row_table`, whose layout
+    `_in_place_table` has checked."""
+    check_kernel_config(c)
+    refuse_grad(*(t for _, t in table), fields["plsm"], consts)
+    version = kernel_version(c, UNFOLDED_FORM, fold_outputs)
+    from . import build
+
+    lib = build.load_library(version=version)
+    pt = fields["pt"]
+    if consts is None:
+        consts = const_vector(c, pt.device)
+    if consts.dtype != torch.float64 or consts.device != pt.device \
+            or consts.numel() != len(CONST_NAMES):
+        raise ValueError("consts must be const_vector(c) on the fields' "
+                         "device")
+    (nlev, ncol), nrows = pt.shape, len(table)
+    o_lev = pt.new_empty((nlev, len(OLEV_ROWS), ncol))
+    o_half = pt.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)), ncol))
+    o_prainfrac = pt.new_empty((ncol,))
+    rows = (ctypes.c_void_p * nrows)(*(t.data_ptr() for _, t in table))
+    heights = (ctypes.c_int * nrows)(*(t.shape[0] for _, t in table))
+    t = "f32" if c.dtype == torch.float32 else "f64"
+    fn = getattr(lib, f"cloudsc_fused_rows_{t}")
+    with torch.cuda.device(pt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(rows, heights, *(fields[n].data_ptr() for n, _ in
+                                 FLAG_DTYPES),
+                consts.data_ptr(), o_lev.data_ptr(), o_half.data_ptr(),
+                o_prainfrac.data_ptr(), nlev, ncol, nrows, stream)
+    tracing.count("ops.k1")
+    tracing.count("launches.k1.version", key=version)
+    tracing.count("launches.k1.in_place")
+    if rc != 0:
+        raise RuntimeError(f"cloudsc_fused_rows launch failed: CUDA error "
+                           f"{rc}")
+    return o_lev, o_half, o_prainfrac
+
+
 OCCUPANCY_KEYS = ("blocks_per_sm", "smem_bytes", "stages", "block",
                   "min_blocks", "registers", "local_bytes")
 
 
-def occupancy(dtype, lib=None) -> dict:
+def occupancy(dtype, lib=None, rows: bool = False) -> dict:
     """What K1 in `dtype` runs with on the current CUDA device, from the
     built library: blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
     at its block and dynamic shared memory), the dynamic shared memory
     bytes a block, its ring geometry, and the registers and local-memory
-    bytes a thread (cudaFuncGetAttributes). Needs a card."""
-    import ctypes
-
+    bytes a thread (cudaFuncGetAttributes); of the Pack policy, or with
+    `rows` of the Rows policy (an unfolded build's). Needs a card."""
     if lib is None:
         from . import build
 
         lib = build.load_library()
     t = "f32" if dtype == torch.float32 else "f64"
+    name = f"cloudsc_fused{'_rows' if rows else ''}_occupancy_{t}"
     out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
-    rc = getattr(lib, f"cloudsc_fused_occupancy_{t}")(ctypes.addressof(out))
+    rc = getattr(lib, name)(ctypes.addressof(out))
     if rc != 0:
-        raise RuntimeError(f"cloudsc_fused_occupancy_{t} failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
     return dict(zip(OCCUPANCY_KEYS, out))
 
 
@@ -1172,11 +1309,17 @@ FEED = Feed()
 class FusedStep(torch.nn.Module):
     """The step with its constants held as a buffer: `derived_consts` for
     the working dtype and the kernel's flat constants vector. It takes a
-    pack, or a plain field dict, which it packs on the fields' device
-    (`pack_inputs`, unfolded) each call, and returns the raw buffers
-    (`assemble` takes the same pack or dict). On the card it launches the
-    build of its own scheme version, the pack's form and its output rows
-    (`kernel_version`)."""
+    pack, or a plain field dict, and returns the raw buffers (`assemble`
+    takes the same pack or dict). On the card it launches the build of its
+    own scheme version, the pack's form and its output rows
+    (`kernel_version`). A field dict on a CUDA card that K1 can read where
+    it lies (`rows_in_place`: every row a contiguous `(h, ncol)` tensor of
+    the working dtype on one device, the flags bool and int32) goes to the
+    unfolded build's Rows policy with no pack (`cloudsc_fused_rows`,
+    counted in `launches.k1.in_place`); any other dict, and every dict on
+    the CPU, is packed on its device (`pack_inputs`, unfolded, counted in
+    `ops.pack`) each call and the pack launched. The choice follows the
+    input alone."""
 
     def __init__(self, params, ptsphy: float, dtype, config=None,
                  fold_outputs: bool = True):
@@ -1199,18 +1342,26 @@ class FusedStep(torch.nn.Module):
 
     def forward(self, x):
         with tracing.span("cloudsc.step"):
-            if isinstance(x, FoldedPack):
-                p = x
-                FEED.check(p.pack.device)
-            else:
-                FEED.check(x["pt"].device)
+            packed = isinstance(x, FoldedPack)
+            dev = x.pack.device if packed else x["pt"].device
+            FEED.check(dev)
+            table = None
+            if not packed and dev.type == "cuda":
+                table, _ = _in_place_table(x, self.c)
+            if not packed and table is None:
                 with tracing.span("cloudsc.pack"):
-                    p = pack_inputs(x, self.params, self.config, self.ptsphy)
-            tracing.count("columns", p.ncol)
+                    x = pack_inputs(x, self.params, self.config, self.ptsphy)
+            tracing.count("columns", x.ncol if table is None
+                          else x["pt"].shape[-1])
             with tracing.span("cloudsc.k1"):
-                res = cloudsc_fused(p, self.c, self.consts_on(p.pack.device),
-                                    fold_outputs=self.fold_outputs)
-            FEED.issued(p.pack.device)
+                consts = self.consts_on(dev)
+                if table is None:
+                    res = cloudsc_fused(x, self.c, consts,
+                                        fold_outputs=self.fold_outputs)
+                else:
+                    res = _launch_rows(table, x, self.c, consts,
+                                       self.fold_outputs)
+            FEED.issued(dev)
             return res
 
 
@@ -1218,9 +1369,11 @@ def cloudsc_fused_fields(fields: dict, params, ptsphy, config=None,
                          fold_outputs: bool | None = None) -> CloudscOutputs:
     """The per-field entry (pallas_cloudsc.cloudsc_pallas on a field dict):
     one step over a plain `make_inputs` field dict, on the fields' device —
-    the `physics.cloudsc` contract. It copies the fields into the unfolded
-    pack there (`pack_inputs`; no arithmetic, no host fold) and launches
-    the unfolded build; on the CPU it runs the plain version.
+    the `physics.cloudsc` contract, through `FusedStep`: on the card the
+    unfolded build reads the fields in place (`cloudsc_fused_rows`), or
+    from the unfolded pack copied there (`pack_inputs`; no arithmetic, no
+    host fold) where the dict's layout does not allow it; on the CPU the
+    plain version runs on that pack.
     `fold_outputs` (default: CLOUDSC_FOLD_OUTPUTS) leaves the four
     derivable flux rows to `assemble`."""
     fo = fold_outputs_flag() if fold_outputs is None else fold_outputs

@@ -716,10 +716,11 @@ def test_foldo_kernel_bitwise_equals_plain(cuda, ncol, kind, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_step_device_ops_on_the_card(cuda, dtype):
-    """The resident step on the card (a field dict, the device pack, K1,
-    `assemble`) issues 60 device operations: the pack's 56, K1's one and
-    `assemble`'s 3 (the flux rows' one launch, the cloud tendencies' zeros
-    and stack); `launches.foldo` counts one launch a step."""
+    """The resident step on the card (a field dict read in place by K1,
+    then `assemble`) issues 4 device operations: K1's one and `assemble`'s
+    3 (the flux rows' one launch, the cloud tendencies' zeros and stack),
+    and no pack; `launches.foldo` counts one launch a step and
+    `launches.k1.in_place` every K1 launch."""
     from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
 
     inp = tdata.load_input(tdata.default_input_path(), 16387)
@@ -732,5 +733,100 @@ def test_step_device_ops_on_the_card(cuda, dtype):
         cc.assemble(step(fields), fields, step.c)
     torch.cuda.synchronize()
     assert [tracing.counter(n) for n in ("ops.pack", "ops.k1",
-                                         "ops.assemble")] == [112, 2, 6]
+                                         "ops.assemble")] == [0, 2, 6]
     assert tracing.counter("launches.foldo") == 2
+    assert tracing.counter("launches.k1.in_place") == 2
+    assert tracing.counter("pack_bytes") == 0
+
+
+def _in_place_case(case, dtype, cuda, ncol=16387):
+    """(params, SchemeConfig, the field dict on the card) of the reference
+    configuration or the aerosol build (every coupling's rows), at `ncol`
+    columns."""
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    inp = tdata.load_input(tdata.default_input_path(), ncol)
+    params = Params.from_input(inp)
+    config = None
+    if case == "aerosol":
+        inp, params, config = synthetic.version_case(case, inp, params)
+    return inp, params, config, fields_on_device(inp, dtype, cuda)
+
+
+def _outputs_bitwise(got, want):
+    for name, a, b in zip(want._fields, got, want):
+        ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a.view(ints), b.view(ints)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["reference", "aerosol"])
+def test_in_place_step_bitwise_equals_packed(cuda, case, dtype):
+    """The step on a field dict read in place (the Rows policy) gives the
+    21 outputs of the packed step (`pack_inputs` and the Pack policy of
+    the same build) bit for bit at a ragged 16,387 columns, for the
+    reference configuration and the aerosol build's extra rows: one K1
+    launch, counted in place, and no pack."""
+    inp, params, config, fields = _in_place_case(case, dtype, cuda)
+    step = cc.FusedStep(params, inp.ptsphy, dtype, config).to(cuda)
+    assert cc.rows_in_place(fields, step.c)
+    tracing.reset()
+    got = cc.assemble(step(fields), fields, step.c)
+    torch.cuda.synchronize()
+    assert [tracing.counter(n) for n in ("ops.pack", "ops.k1",
+                                         "launches.k1.in_place")] == [0, 1, 1]
+    assert tracing.keyed("launches.k1.version") == {
+        cc.kernel_version(step.c, cc.UNFOLDED_FORM): 1}
+    p = cc.pack_inputs(fields, params, config)
+    want = cc.assemble(cc.cloudsc_fused(p, step.c), fields, step.c)
+    torch.cuda.synchronize()
+    _outputs_bitwise(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fault", ["transposed", "ldcum_float"])
+def test_refused_dict_falls_back_to_the_pack(cuda, fault, dtype):
+    """A dict `rows_in_place` refuses (a row laid out level-innermost, or
+    LDCUM in the working dtype) is packed on the card and launched as a
+    pack: no launch in place, the pack's operations counted, and the
+    outputs of the dict read in place, bit for bit."""
+    inp, params, _, fields = _in_place_case("reference", dtype, cuda)
+    step = cc.FusedStep(params, inp.ptsphy, dtype).to(cuda)
+    want = cc.assemble(step(fields), fields, step.c)
+    bad = dict(fields)
+    if fault == "transposed":
+        bad["pt"] = fields["pt"].t().contiguous().t()
+    else:
+        bad["ldcum"] = fields["ldcum"].to(dtype)
+    assert not cc.rows_in_place(bad, step.c)
+    with pytest.raises(ValueError):
+        cc.cloudsc_fused_rows(bad, step.c)
+    tracing.reset()
+    got = cc.assemble(step(bad), bad, step.c)
+    torch.cuda.synchronize()
+    assert tracing.counter("launches.k1.in_place") == 0
+    assert tracing.counter("ops.k1") == 1
+    assert tracing.counter("ops.pack") > 0
+    _outputs_bitwise(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_policy_occupancy(cuda, dtype):
+    """The Rows policy's build of the unfolded K1 takes within 4 registers
+    of the Pack policy's in the same library, uses no more local memory a
+    thread (none in fp32; in fp64 both sit at the launch bound's 255
+    registers and spill 16 B each, as measured on an H100), and runs the
+    same ring (shared memory, blocks an SM at least one)."""
+    c = tscheme.derived_consts(
+        Params.from_input(tdata.load_input(tdata.default_input_path(), 100)),
+        1.0, dtype)
+    lib = build.load_library(version=cc.kernel_version(c, cc.UNFOLDED_FORM))
+    pack = cc.occupancy(dtype, lib)
+    rows = cc.occupancy(dtype, lib, rows=True)
+    assert rows["local_bytes"] <= pack["local_bytes"], (rows, pack)
+    if dtype == torch.float32:
+        assert rows["local_bytes"] == 0, rows
+    assert abs(rows["registers"] - pack["registers"]) <= 4, (rows, pack)
+    assert rows["smem_bytes"] == pack["smem_bytes"]
+    assert rows["blocks_per_sm"] >= 1

@@ -1,0 +1,183 @@
+"""K1 reading a plain field dict in place, on the CPU: the layout check
+(`rows_in_place`), the row table the Rows policy of csrc/cloudsc_fused.cu
+reads (`row_table`), its clamp rule against the device pack it replaces
+(`pack_inputs`), the step's choice between the two, and the ptxas keys of
+the two policies' builds. The launch itself needs a card
+(`tests/test_torch_cuda.py`).
+
+  * `rows_in_place` takes `physics.cloudsc.make_inputs`' dict and
+    `cellbench.inputs.field_dict`'s, fp32 and fp64, for the reference
+    configuration and the aerosol build (its five extra rows), and refuses
+    a transposed or sliced row, a wrong dtype, and flags that are not bool
+    and int32;
+  * the row table names the unfolded pack's rows in its order, each its
+    field's own tensor, of height nlev (nlev+1 for PAPH);
+  * reading row r of level lev at level min(lev, h_r - 1), as the kernel
+    does, rebuilds `pack_inputs(fields).pack` bit for bit, and the flags in
+    their own dtypes read as the pack's `col` does;
+  * on the CPU the step packs (`ops.pack` 56 a step) and launches nothing
+    in place; `cloudsc_fused_rows` refuses what it cannot read.
+"""
+
+import pytest
+import torch
+
+from cellbench import inputs as cbinputs
+from cloudsc_tpu_torch import data as tdata
+from cloudsc_tpu_torch.data import synthetic
+from cloudsc_tpu_torch.kernels import build
+from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
+from cloudsc_tpu_torch.params import Params
+from cloudsc_tpu_torch.physics import scheme as tscheme
+from cloudsc_tpu_torch.physics.cloudsc import make_inputs
+from cloudsc_tpu_torch.runtime import tracing
+
+torch.set_num_threads(1)
+
+NCOL = 256
+DTYPES = {"fp32": torch.float32, "fp64": torch.float64}
+
+
+def _case(case, dtype, source="make_inputs", ncol=NCOL):
+    """(inp, params, SchemeConfig or None, derived_consts, field dict) of
+    the reference configuration or the aerosol build, the dict from
+    `make_inputs` or `cellbench.inputs.field_dict`."""
+    inp = tdata.load_input(tdata.default_input_path(), ncol)
+    params = Params.from_input(inp)
+    config = None
+    if case == "aerosol":
+        inp, params, config = synthetic.version_case(case, inp, params)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype, config)
+    if source == "make_inputs":
+        fields = make_inputs(inp, dtype)
+    else:
+        snap, _ = cbinputs.load_snapshot()
+        precision = next(k for k, v in DTYPES.items() if v == dtype)
+        fields = cbinputs.field_dict(snap, ncol, precision, "cpu")
+    return inp, params, config, c, fields
+
+
+@pytest.mark.parametrize("source", ["make_inputs", "field_dict"])
+@pytest.mark.parametrize("case", ["reference", "aerosol"])
+@pytest.mark.parametrize("precision", ["fp32", "fp64"])
+def test_rows_in_place_takes_the_plain_dicts(precision, case, source):
+    *_, c, fields = _case(case, DTYPES[precision], source)
+    assert len(cc.aer_rows(c)) == (5 if case == "aerosol" else 0)
+    assert cc.rows_in_place(fields, c)
+
+
+def _faults():
+    nlev = 137
+    return {
+        "transposed": lambda f, dt: {**f, "pq": f["pq"].t().contiguous().t()},
+        "sliced_columns": lambda f, dt: {**f, "pa": f["pa"][:, :-1]},
+        "sliced_levels": lambda f, dt: {**f, "paph": f["paph"][:nlev]},
+        "strided_species": lambda f, dt: {
+            **f, "pclv": f["pclv"].transpose(1, 2).contiguous()
+            .transpose(1, 2)},
+        "wrong_dtype": lambda f, dt: {
+            **f, "pvfl": f["pvfl"].to(torch.float64 if dt == torch.float32
+                                      else torch.float32)},
+        "plsm_dtype": lambda f, dt: {
+            **f, "plsm": f["plsm"].to(torch.float64 if dt == torch.float32
+                                      else torch.float32)},
+        "ldcum_not_bool": lambda f, dt: {**f, "ldcum": f["ldcum"].to(dt)},
+        "ktype_not_int32": lambda f, dt: {
+            **f, "ktype": f["ktype"].to(torch.int64)},
+        "missing_row": lambda f, dt: {k: v for k, v in f.items()
+                                      if k != "psupsat"},
+    }
+
+
+@pytest.mark.parametrize("fault", list(_faults()))
+def test_rows_in_place_refuses(fault):
+    dtype = torch.float32
+    *_, c, fields = _case("reference", dtype)
+    bad = _faults()[fault](fields, dtype)
+    assert not cc.rows_in_place(bad, c)
+    with pytest.raises(ValueError, match="in place"):
+        cc.cloudsc_fused_rows(bad, c)
+
+
+@pytest.mark.parametrize("case", ["reference", "aerosol"])
+def test_row_table_is_the_unfolded_pack_rows(case):
+    inp, *_, c, fields = _case(case, torch.float64)
+    table = cc.row_table(fields, c)
+    names = [n for n, _ in table]
+    assert tuple(names) == cc.pack_rows(fn=False, aer=cc.aer_rows(c),
+                                        fold_inputs=False)
+    for name, t in table:
+        field, m = cc._unfolded_source(name)
+        src = fields[field] if m is None else fields[field][m]
+        assert t.data_ptr() == src.data_ptr() and t.shape == src.shape, name
+        assert t.shape == (inp.klev + (name == "paph"), NCOL), name
+
+
+@pytest.mark.parametrize("case", ["reference", "aerosol"])
+@pytest.mark.parametrize("precision", ["fp32", "fp64"])
+def test_clamp_rule_rebuilds_the_device_pack(precision, case):
+    """Row r of level lev read at level min(lev, h_r - 1), as the Rows
+    policy reads it, is `pack_inputs`' pack bit for bit, edge rows
+    included; PLSM, LDCUM != 0, KTYPE and PAPH's level nlev read in their
+    own dtypes are what the kernel makes of the pack's `col`."""
+    dtype = DTYPES[precision]
+    inp, params, config, c, fields = _case(case, dtype)
+    nlev = inp.klev
+    p = cc.pack_inputs(fields, params, config)
+    table = cc.row_table(fields, c)
+    clamped = torch.stack([
+        torch.stack([t[min(lev, t.shape[0] - 1)] for _, t in table])
+        for lev in range(nlev + 1)])
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    assert p.rows == tuple(n for n, _ in table)
+    assert torch.equal(clamped.view(ints), p.pack.view(ints))
+    assert torch.equal(fields["plsm"], p.col[0])
+    assert torch.equal(fields["ldcum"] != 0, p.col[1] > 0.5)
+    assert torch.equal(fields["ktype"], p.col[2].to(torch.int32))
+    assert torch.equal(fields["paph"][nlev], p.col[3])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "fp64"])
+def test_cpu_step_packs_and_reads_nothing_in_place(precision):
+    """On the CPU the step packs a dict `rows_in_place` takes: 56 pack
+    operations a step, no launch in place, and the plain version's
+    outputs; `cloudsc_fused_rows` refuses a CPU dict."""
+    dtype = DTYPES[precision]
+    inp, params, _, c, fields = _case("reference", dtype, ncol=8)
+    assert cc.rows_in_place(fields, c)
+    step = cc.FusedStep(params, inp.ptsphy, dtype)
+    tracing.reset()
+    for _ in range(2):
+        cc.assemble(step(fields), fields, step.c)
+    assert tracing.counter("ops.pack") == 2 * 56
+    assert tracing.counter("launches.k1.in_place") == 0
+    assert tracing.counter("ops.k1") == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        cc.cloudsc_fused_rows(fields, c)
+
+
+@pytest.mark.parametrize("mangled,key", [
+    ("_ZN7cloudsc12fused_kernelIfNS_4PackEEEvPKT_S4_PKdPS2_S7_S7_iiiT0_",
+     "fused_f32"),
+    ("_ZN7cloudsc12fused_kernelIdNS_4RowsIdEEEEvPKT_S5_PKdPS3_S8_S8_iiiT0_",
+     "fused_f64_rows"),
+    ("_ZN7cloudsc12floor_kernelIdEEvPKT_S3_PKdPS1_S6_S6_iii", "floor_f64"),
+])
+def test_kernel_key_names_the_policy(mangled, key):
+    """The ptxas report keeps the two policies' builds of K1 apart."""
+    assert build.kernel_key(mangled) == key
+
+
+def test_rows_entries_only_in_the_unfolded_build():
+    """The Rows entries are declared, and looked up only where the build
+    has them: the unfolded pack's rows are fields, a folded one's are
+    not."""
+    assert set(build.UNFOLDED_ONLY) == {
+        f"cloudsc_fused_rows{o}_{t}" for o in ("", "_occupancy")
+        for t in ("f32", "f64")}
+    assert all(n in build.ENTRY_POINTS for n in build.UNFOLDED_ONLY)
+    assert cc.kernel_version(
+        tscheme.derived_consts(
+            Params.from_input(tdata.load_input(tdata.default_input_path(),
+                                               8)), 1.0, torch.float32),
+        cc.UNFOLDED_FORM).fold_inputs is False
