@@ -92,10 +92,9 @@ failed check (the script then exits non-zero and prints no result):
      by the unfolded build) with the per-version and in-place counts reset
      and read (every launch in place), bit for bit with the
      CLOUDSC_FOLD_INPUTS=0 main path (none in place) and with
-     `cuda_cloudsc.cloudsc_fused_fields` on the card's field dict; the
-     device pack's time beside K1's; in fp32 and fp64
-     `cuda_cloudsc.cloudsc_fused_rows` (the Rows policy) on the card's field
-     dict bit for bit with the plain version on `pack_inputs` of it, its
+     `cuda_cloudsc.cloudsc_fused_fields` on the card's field dict; in fp32
+     and fp64 `cuda_cloudsc.cloudsc_fused` on the card's field dict (the
+     Rows policy) bit for bit with the plain version on the same dict, its
      time beside its bound (a `cloudsc_fused_rows` row in the kernel
      table);
   3l. the main path in fp32 in the cyclic (CLOUDSC_GROUP_COLUMNS=0) and the
@@ -995,11 +994,10 @@ def phase_fields_entry(inp, params):
     none), every field equal bit for bit to the CLOUDSC_FOLD_INPUTS=0 main
     path's (the host's unfolded pack) after the ungroup, and
     `cloudsc_fused_fields` on `fields_on_device`'s dict equal bit for bit
-    to both; then the device pack's time and K1's on it (CUDA events). In
-    fp32 and fp64 `cloudsc_fused_rows` (the Rows policy) on the card's
-    field dict against `cloudsc_fused_plain` on `pack_inputs` of the same
-    dict, all three buffers bit for bit, with its time beside its bound.
-    Returns a record."""
+    to both. In fp32 and fp64 `cloudsc_fused` on the card's field dict (the
+    Rows policy) against `cloudsc_fused_plain` on the same dict (through
+    its row table, on the card), all three buffers bit for bit, with its
+    time beside its bound. Returns a record."""
     import torch
 
     from cloudsc_tpu_torch.bench import timing
@@ -1036,44 +1034,36 @@ def phase_fields_entry(inp, params):
         if not (torch.equal(a, b) and torch.equal(e, b)):
             raise RuntimeError(f"per-field {f}: differs from the unfolded "
                                f"pack's main path")
-    del fields_out, pack_out, entry_out
-    c, consts = driver.step.c, driver.step.consts
-    pack_ms = _event_ms(lambda: cc.pack_inputs(fields, params, None,
-                                               inp.ptsphy), ITERATIONS)
-    p = cc.pack_inputs(fields, params, None, inp.ptsphy)
-    ms = _event_ms(lambda: cc.cloudsc_fused(p, c, consts), ITERATIONS)
-    rec = dict(launches=launches[v], in_place=in_place, pack_ms=pack_ms,
-               ms=ms, pack_gb=p.pack.numel() * p.pack.element_size() / 1e9,
+    del fields_out, pack_out, entry_out, fields
+    rec = dict(launches=launches[v], in_place=in_place,
                driver_ms=t_fields.compute_s * 1e3,
                unfolded_driver_ms=t_pack.compute_s * 1e3)
     print(f"phase fields entry fp32: the per-field main path "
           f"({launches[v]} launches of the unfolded build, {in_place} in "
           f"place), cloudsc_fused_fields and the unfolded pack's main path "
-          f"(none in place) equal bit for bit on all 21 fields; device pack "
-          f"{pack_ms:.4f} ms ({rec['pack_gb']:.3f} GB), K1 on it "
-          f"{ms:.4f} ms")
-    del fields, p
+          f"(none in place) equal bit for bit on all 21 fields")
     torch.cuda.empty_cache()
     for dtype in (torch.float32, torch.float64):
         tag = "fp64" if dtype == torch.float64 else "fp32"
         d = CloudscDriver(params, inp.ptsphy, dtype=dtype, device="cuda")
         c, consts = d.step.c, d.step.consts
         fields = fields_on_device(inp, dtype, "cuda")
-        if not cc.rows_in_place(fields, c):
-            raise RuntimeError(f"{tag}: the card's field dict is not read "
-                               f"in place")
+        # the modeled bytes of the pack the dict stands in for
         p = cc.pack_inputs(fields, params, None, inp.ptsphy)
+        bound = timing.bound(cc.k1_bytes(p),
+                             timing.K1_FLOP_PER_COLUMN * NGPTOT, tag)
+        del p
         tracing.reset()
-        got = cc.cloudsc_fused_rows(fields, c, consts)
+        got = cc.cloudsc_fused(fields, c, consts)
         counted = (tracing.counter("launches.k1.in_place"),
                    tracing.counter("ops.pack"))
         if counted != (1, 0):
-            raise RuntimeError(f"{tag}: cloudsc_fused_rows counted "
+            raise RuntimeError(f"{tag}: cloudsc_fused on the dict counted "
                                f"(in place, ops.pack) {counted}")
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = cc.cloudsc_fused_plain(p, c)
+        want = cc.cloudsc_fused_plain(fields, c)
         stop.record()
         stop.synchronize()
         plain_ms = start.elapsed_time(stop)
@@ -1083,21 +1073,19 @@ def phase_fields_entry(inp, params):
             max_abs = max(max_abs, float((a.double() - b.double()).abs()
                                          .max()))
             if not bool(torch.isfinite(a).all()) or not same_bits(a, b):
-                raise RuntimeError(f"{tag} {bname}: cloudsc_fused_rows != "
-                                   f"the plain version on the unfolded pack "
+                raise RuntimeError(f"{tag} {bname}: cloudsc_fused on the "
+                                   f"dict != the plain version on it "
                                    f"(max abs err {max_abs:.3e})")
         del got, want
-        rows_ms = _event_ms(lambda: cc.cloudsc_fused_rows(fields, c, consts),
+        rows_ms = _event_ms(lambda: cc.cloudsc_fused(fields, c, consts),
                             ITERATIONS)
-        bound = timing.bound(cc.k1_bytes(p),
-                             timing.K1_FLOP_PER_COLUMN * NGPTOT, tag)
         rec[tag] = dict(max_abs=max_abs, ms=rows_ms, plain_ms=plain_ms,
                         bound=bound)
-        print(f"phase fields entry {tag}: cloudsc_fused_rows == the plain "
-              f"version on pack_inputs of the same dict bit for bit on all "
-              f"three buffers; {rows_ms:.4f} ms, bound {bound[0]:.4f} ms (by "
+        print(f"phase fields entry {tag}: cloudsc_fused on the dict == the "
+              f"plain version on the same dict bit for bit on all three "
+              f"buffers; {rows_ms:.4f} ms, bound {bound[0]:.4f} ms (by "
               f"{bound[1]}) = {bound[0] / rows_ms:.3f} of its time")
-        del fields, p, d
+        del fields, d
         torch.cuda.empty_cache()
     return rec
 
@@ -2109,15 +2097,13 @@ def main() -> int:
           f"{t_scan.compile_s:.3f} s); h2d {t_scan.h2d_s:.3f} s; driver.run "
           f"{run_scan:.3f} s; pre-packed (scan_pack) "
           f"{t_scan_packed.compute_s * 1e3:.1f} ms/step")
-    print(f"timing fields entry fp32 [{card}]: device pack "
-          f"{fentry['pack_ms']:.4f} ms ({fentry['pack_gb']:.3f} GB copied), "
-          f"K1 on it {fentry['ms']:.4f} ms (CUDA events over {ITERATIONS} "
-          f"calls); driver loop with CLOUDSC_PACKED_STORAGE=0 "
+    print(f"timing fields entry fp32 [{card}]: driver loop with "
+          f"CLOUDSC_PACKED_STORAGE=0 "
           f"{fentry['driver_ms']:.4f} ms/step (K1 in place), with "
           f"CLOUDSC_FOLD_INPUTS=0 {fentry['unfolded_driver_ms']:.4f} ms/step")
     for tag in ("fp32", "fp64"):
         r = fentry[tag]
-        print(f"timing K1 in place {tag} [{card}]: cloudsc_fused_rows "
+        print(f"timing K1 in place {tag} [{card}]: cloudsc_fused "
               f"{r['ms']:.4f} ms/step on the field dict (CUDA events over "
               f"{ITERATIONS} launches at {NGPTOT} columns); bound "
               f"{r['bound'][0]:.4f} ms (by {r['bound'][1]}) = "
@@ -2315,7 +2301,7 @@ def main() -> int:
             # the same build through the per-field entry
             entry["fields_fp32"] = {
                 "ncol": NGPTOT, "launches": fentry["launches"],
-                "ms": fentry["ms"], "device_pack_ms": fentry["pack_ms"]}
+                "driver_ms": fentry["driver_ms"]}
         entries.append(entry)
     # K1's Rows policy on the field dict: the per-field main path's launches
     # (each read in place), fp32 in the common keys, fp64 beside

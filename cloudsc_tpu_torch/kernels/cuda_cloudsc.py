@@ -6,7 +6,7 @@ always-summed pairs folded in fp64 on the host) in every form (the optional
 streamed saturation-curve, ZDQS and deposition rows; the main path streams
 ZDQS alone), or the unfolded pack (the raw state and tendencies, summed in
 the kernel at working precision: CLOUDSC_FOLD_INPUTS=0), built on the host
-from a snapshot or on the fields' device from a field dict
+from a snapshot, or a plain field dict read where it lies
 (`cloudsc_fused_fields`, the per-field entry); the four derivable flux rows
 folded out of the outputs and rebuilt in `assemble`, or written by the
 kernel (CLOUDSC_FOLD_OUTPUTS=0); on grouped or cyclic columns.
@@ -24,45 +24,44 @@ The pack states its own layout — its row names, whether it is folded
 no consumer infers it from a row count.
 
 K1 has two addressing policies, one body (csrc/cloudsc_fused.cu): `Pack`
-reads such a pack, and `Rows` reads a plain field dict on the card where it
-lies, with no pack: a table of the unfolded rows' base pointers and heights
+reads such a pack, and `Rows` reads a plain field dict where it lies, with
+no pack: a table of the unfolded rows' base pointers and heights
 (`row_table`) in the kernel's parameters, row r of level lev read at level
 min(lev, h_r - 1) — the clamp gives at level nlev the values of the pack's
-edge-replicated row — and PLSM, LDCUM and KTYPE in their own dtypes.
-`FusedStep` reads a dict in place (`cloudsc_fused_rows`) when it is on a
-CUDA card and `rows_in_place` holds (contiguous `(h, ncol)` rows of the
-working dtype on one device, the flags bool and int32); any other dict is
-packed on its device first (`pack_inputs`).
+edge-replicated row — and PLSM, LDCUM and KTYPE in their own dtypes. A
+dict must be laid out so (`rows_in_place`: contiguous `(h, ncol)` rows of
+the working dtype on one device, the flags bool and int32); any other
+raises, naming the row. Nothing repacks it.
 
-`cloudsc_fused` launches the kernel for a CUDA pack (or raises) and runs
-`cloudsc_fused_plain` — a level loop over `physics.scheme` on `(ncol,)` rows
-that mirrors the Pallas `_kernel` / `_sub_level` / `_write_level_rows` — for a
-CPU pack. Its `mode` also selects the TPU kernel's two diagnostic bodies
-(`floor`, `init`: the same I/O with degenerate or section-1 compute, for the
-measurement lab), with plain versions `cloudsc_floor_plain` /
-`cloudsc_init_plain`. The launches are counted in `runtime.tracing`:
-`ops.k1` the full body's (the step's K1), `launches.k1.floor` and
-`launches.k1.init` the diagnostic bodies', `launches.k1.version` the full
-body's by build (keyed by `KernelVersion`).
+`cloudsc_fused` is K1's one entry, for a pack or a dict: on the card it
+launches the policy of its input (or raises), through one launcher
+(`_launch`); on the CPU it runs `cloudsc_fused_plain` — a level loop over
+`physics.scheme` on `(ncol,)` rows that mirrors the Pallas `_kernel` /
+`_sub_level` / `_write_level_rows` — on the pack, or through the dict's
+row table with the kernel's clamp. Its `mode` also selects the TPU
+kernel's two diagnostic bodies on a pack (`floor`, `init`: the same I/O
+with degenerate or section-1 compute, for the measurement lab), with plain
+versions `cloudsc_floor_plain` / `cloudsc_init_plain`. The launches are
+counted in `runtime.tracing`: `ops.k1` the full body's (the step's K1),
+`launches.k1.floor` and `launches.k1.init` the diagnostic bodies',
+`launches.k1.version` the full body's by build (keyed by `KernelVersion`),
+`launches.k1.in_place` the full body's on a dict.
 
 The step records its layers there too: `FusedStep.forward` is the span
-`cloudsc.step`, around the layout check and row table of a dict on the
-card, `cloudsc.pack` (the device pack of a field dict, `pack_inputs`,
-where it is not read in place) and `cloudsc.k1` (the launch with its
-checks and library lookup); `assemble` is
-`cloudsc.assemble`, around `cloudsc.foldo`. Each layer counts the device
-operations it issues, each a kernel, copy or fill (`ops.pack`, `ops.k1`,
-`ops.assemble`), the step its `columns`, the pack the bytes it writes
-(`pack_bytes`); `launches.k1.in_place` counts the full-body launches that
-read a field dict in place (no pack: `ops.pack` and `pack_bytes` count
-nothing for them). On the card `FEED` counts, a card at a time, the steps
-that found the card's queue already drained (`feed.dry` of `feed.issues`,
-`Feed`). On the card `foldo_synthesize` writes
-the four folded-out flux rows in one launch of `csrc/foldo.cu`
+`cloudsc.step`, around `cloudsc.k1` (the one `cloudsc_fused` call: a
+dict's layout check and row table, the launch's checks, library lookup
+and launch); `assemble` is `cloudsc.assemble`, around `cloudsc.foldo`.
+Each layer counts the device operations it issues, each a kernel, copy or
+fill (`ops.k1`, `ops.assemble`; `ops.pack` the device pack, `pack_inputs`,
+where it is called, which the step never does), the step its `columns`,
+the pack the bytes it writes (`pack_bytes`). On the card `FEED` counts, a
+card at a time, the steps that found the card's queue already drained
+(`feed.dry` of `feed.issues`, `Feed`). On the card `foldo_synthesize`
+writes the four folded-out flux rows in one launch of `csrc/foldo.cu`
 (`launches.foldo`), a library of its own; on the CPU its plain version
 adds them level by level. On the card PyTorch cuts a copy into a
 view that spans more than 2**31 bytes into several launches, which the
-count does not see (the device pack's row copies at full width).
+count does not see (`pack_inputs`' row copies at full width).
 
 The kernel streams each column's input rows through a per-thread ring of
 shared-memory stages filled by asynchronous copies. `RING` holds its
@@ -619,8 +618,8 @@ def pack_inputs(fields: dict, params, config=None, ptsphy=None,
     `fold=True` (needs `ptsphy`) folds at the fields' dtype, in the
     environment's form (`fold_flags`: fc, fn, fd), the optional rows
     computed in fp64 on the host from the fields as the JAX function
-    computes them. The unfolded pack (the step's, where K1 cannot read the
-    dict in place: `FusedStep`) counts its device operations in
+    computes them. The unfolded pack (the Pack policy's witness of what
+    the Rows policy reads in place) counts its device operations in
     `ops.pack`; both count the bytes they write in `pack_bytes`."""
     pt = fields["pt"]
     dtype, dev = pt.dtype, pt.device
@@ -740,65 +739,11 @@ def refuse_grad(*tensors) -> None:
             "(physics.autodiff, backend='scan', --kernel scan)")
 
 
-def cloudsc_fused(p: FoldedPack, c, consts: torch.Tensor | None = None,
-                  mode: str = "full", lib=None, fold_outputs: bool = True):
-    """One CLOUDSC step on the pack -> (o_lev (nlev, 9, ncol), o_half
-    (nlev+1, 10 or 14 (`ohalf_rows(fold_outputs)`), ncol), o_prainfrac
-    (ncol,)) on the pack's device. `mode` "floor" or "init" runs the
-    diagnostic body instead of the physics. A CUDA pack launches the kernel
-    (or raises); a CPU pack runs the plain version. `lib` is a library from
-    `build.load_library` (if None, the build of `c`'s configuration on
-    `p`'s form and the output rows, `kernel_version(c, p.form,
-    fold_outputs)`). An input that requires grad is refused on either
-    device (`refuse_grad`)."""
-    if mode not in MODES:
-        raise ValueError(f"mode {mode!r}: one of {MODES}")
-    refuse_grad(p.pack, p.col, consts)
-    if p.pack.device.type == "cpu":
-        if mode == "floor":
-            return cloudsc_floor_plain(p, fold_outputs)
-        if mode == "init":
-            return cloudsc_init_plain(p, c, fold_outputs)
-        return cloudsc_fused_plain(p, c, fold_outputs)
-    check_kernel_args(p, c)
-    version = kernel_version(c, p.form, fold_outputs)
-    if lib is None:
-        from . import build
-
-        lib = build.load_library(version=version)
-    if consts is None:
-        consts = const_vector(c, p.pack.device)
-    if consts.dtype != torch.float64 or consts.device != p.pack.device \
-            or consts.numel() != len(CONST_NAMES):
-        raise ValueError("consts must be const_vector(c) on the pack's device")
-    nlev, ncol, nrows = p.nlev, p.ncol, len(p.rows)
-    o_lev = p.pack.new_empty((nlev, len(OLEV_ROWS), ncol))
-    o_half = p.pack.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)),
-                               ncol))
-    o_prainfrac = p.pack.new_empty((ncol,))
-    t = "f32" if p.pack.dtype == torch.float32 else "f64"
-    fn = getattr(lib, f"cloudsc_{_BODIES[mode]}_{t}")
-    with torch.cuda.device(p.pack.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(p.pack.data_ptr(), p.col.data_ptr(), consts.data_ptr(),
-                o_lev.data_ptr(), o_half.data_ptr(), o_prainfrac.data_ptr(),
-                nlev, ncol, nrows, stream)
-    if mode == "full":
-        tracing.count("ops.k1")
-        tracing.count("launches.k1.version", key=version)
-    else:
-        tracing.count(f"launches.k1.{mode}")
-    if rc != 0:
-        raise RuntimeError(f"cloudsc_fused ({mode}) launch failed: CUDA "
-                           f"error {rc}")
-    return o_lev, o_half, o_prainfrac
-
-
 # the in-place input's per-column rows and their dtypes (None: the working
 # dtype); the surface pressure is PAPH's level nlev
 FLAG_DTYPES = (("plsm", None), ("ldcum", torch.bool), ("ktype", torch.int32))
 # the form of the build that reads a field dict: the unfolded rows
-UNFOLDED_FORM = {"fold_inputs": False, "fn": False}
+UNFOLDED_FORM = {"fold_inputs": False, "fc": False, "fn": False, "fd": False}
 
 
 def row_table(fields: dict, c) -> list:
@@ -806,9 +751,9 @@ def row_table(fields: dict, c) -> list:
     in the unfolded pack's order (`pack_rows(fold_inputs=False,
     aer=aer_rows(c))`), each the field's own tensor or its species slice
     (`_unfolded_source`), `(h, ncol)`: h = nlev, or nlev+1 for PAPH. The
-    Rows policy of csrc/cloudsc_fused.cu reads row r of level lev at level
-    min(lev, h - 1), the values the pack's edge-replicated row nlev
-    holds."""
+    Rows policy of csrc/cloudsc_fused.cu and the plain version on a dict
+    read row r of level lev at level min(lev, h - 1), the values the
+    pack's edge-replicated row nlev holds."""
     out = []
     for name in pack_rows(fn=False, aer=aer_rows(c), fold_inputs=False):
         field, m = _unfolded_source(name)
@@ -817,102 +762,138 @@ def row_table(fields: dict, c) -> list:
     return out
 
 
-def _in_place_table(fields: dict, c):
-    """(`row_table(fields, c)`, None) where K1 can read `fields` in place
-    (`rows_in_place`), else (None, why not)."""
+def _in_place_table(fields: dict, c) -> list:
+    """`row_table(fields, c)` where K1 can read `fields` in place
+    (`rows_in_place`); else raises ValueError naming the row."""
+    def refuse(why):
+        return ValueError(f"K1 cannot read the field dict in place: {why}")
+
     pt = fields.get("pt")
     if not torch.is_tensor(pt) or pt.ndim != 2:
-        return None, "pt is not an (nlev, ncol) tensor"
+        raise refuse("pt is not an (nlev, ncol) tensor")
     if c.dtype not in (torch.float32, torch.float64):
-        return None, f"constants {c.dtype}: one of fp32/fp64"
+        raise refuse(f"constants {c.dtype}: one of fp32/fp64")
     (nlev, ncol), dev = pt.shape, pt.device
     try:
         table = row_table(fields, c)
     except KeyError as e:
-        return None, f"no field {e}"
+        raise refuse(f"no field {e}") from None
     for name, t in table:
         shape = (nlev + (name == "paph"), ncol)
         if t.dtype != c.dtype or t.device != dev \
                 or tuple(t.shape) != shape or t.stride() != (ncol, 1):
-            return None, (f"{name}: {t.dtype} {tuple(t.shape)} strides "
-                          f"{t.stride()} on {t.device}; wanted {c.dtype} "
-                          f"{shape} strides {(ncol, 1)} on {dev}")
+            raise refuse(f"{name}: {t.dtype} {tuple(t.shape)} strides "
+                         f"{t.stride()} on {t.device}; wanted {c.dtype} "
+                         f"{shape} strides {(ncol, 1)} on {dev}")
     for name, dtype in FLAG_DTYPES:
         t, dtype = fields.get(name), dtype or c.dtype
         if not torch.is_tensor(t) or t.dtype != dtype or t.device != dev \
                 or tuple(t.shape) != (ncol,) or t.stride() != (1,):
-            return None, (f"{name}: wanted a contiguous ({ncol},) {dtype} "
-                          f"on {dev}")
-    return table, None
+            raise refuse(f"{name}: wanted a contiguous ({ncol},) {dtype} on "
+                         f"{dev}")
+    return table
 
 
 def rows_in_place(fields: dict, c) -> bool:
-    """Whether K1 can read the plain field dict `fields` where it lies
-    (`cloudsc_fused_rows`), for `derived_consts` `c` of fp32 or fp64: every
-    row of `row_table` a contiguous `(h, ncol)` tensor, strides (ncol, 1),
-    of the working dtype (`c.dtype`); PLSM a contiguous `(ncol,)` of that
-    dtype, LDCUM bool and KTYPE int32; all on one device. Layout only: the
-    device is not asked for."""
-    return _in_place_table(fields, c)[1] is None
+    """Whether K1 can read the plain field dict `fields` where it lies, for
+    `derived_consts` `c` of fp32 or fp64: every row of `row_table` a
+    contiguous `(h, ncol)` tensor, strides (ncol, 1), of the working dtype
+    (`c.dtype`); PLSM a contiguous `(ncol,)` of that dtype, LDCUM bool and
+    KTYPE int32; all on one device. Layout only: the device is not asked
+    for. `cloudsc_fused` takes such a dict and refuses any other."""
+    try:
+        _in_place_table(fields, c)
+    except ValueError:
+        return False
+    return True
 
 
-def cloudsc_fused_rows(fields: dict, c, consts: torch.Tensor | None = None,
-                       fold_outputs: bool = True):
-    """One CLOUDSC step on a plain field dict on the card, read in place:
-    the unfolded build's Rows policy, whose ring fetches each row from its
-    field through a table of row base pointers and heights
-    (`row_table`) in the kernel's parameters, and the per-column inputs in
-    their own dtypes; no pack, no copy, one launch. Returns the buffers
-    `cloudsc_fused` returns, equal bit for bit to the unfolded build's on
-    `pack_inputs(fields)`. Raises ValueError for a dict `rows_in_place`
-    refuses, off a CUDA device, or a configuration `check_kernel_config`
-    refuses; refuses an input that requires grad (`refuse_grad`). Launches
-    the unfolded build of `c`'s configuration and output rows. Counts
-    `ops.k1`, `launches.k1.version` and `launches.k1.in_place`."""
-    table, why = _in_place_table(fields, c)
-    if why is not None:
-        raise ValueError(f"K1 cannot read the field dict in place: {why}")
-    if fields["pt"].device.type != "cuda":
-        raise ValueError("the CUDA kernel needs the fields on a CUDA device")
-    return _launch_rows(table, fields, c, consts, fold_outputs)
-
-
-def _launch_rows(table: list, fields: dict, c, consts, fold_outputs: bool):
-    """`cloudsc_fused_rows` on a CUDA dict's `row_table`, whose layout
-    `_in_place_table` has checked."""
+def cloudsc_fused(x, c, consts: torch.Tensor | None = None,
+                  mode: str = "full", lib=None, fold_outputs: bool = True):
+    """One CLOUDSC step on a pack or a plain field dict -> (o_lev (nlev, 9,
+    ncol), o_half (nlev+1, 10 or 14 (`ohalf_rows(fold_outputs)`), ncol),
+    o_prainfrac (ncol,)) on its device. A `FoldedPack` on the card launches
+    the Pack policy; `mode` "floor" or "init" runs the diagnostic body
+    instead of the physics. A field dict is read in place, with no pack:
+    on the card the unfolded build's Rows policy (a table of the rows'
+    base pointers and heights in the kernel's parameters, the flags in
+    their own dtypes; counted in `launches.k1.in_place`), the full body
+    only; a dict `rows_in_place` refuses raises ValueError naming the row,
+    on either device. On the CPU the plain version runs, on the pack or
+    through the dict's row table. `lib` is a library from
+    `build.load_library` (if None, the build of `c`'s configuration on the
+    input's form and the output rows, `kernel_version`). An input that
+    requires grad is refused on either device (`refuse_grad`)."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
+    if isinstance(x, FoldedPack):
+        like, inputs = x.pack, (x.pack, x.col)
+    elif mode != "full":
+        raise ValueError(f"mode {mode!r}: a field dict runs the full body")
+    else:
+        table = _in_place_table(x, c)
+        like = x["pt"]
+        inputs = [t for _, t in table] + [x[n] for n, _ in FLAG_DTYPES]
+    refuse_grad(*inputs, consts)
+    if like.device.type == "cpu":
+        if mode == "floor":
+            return cloudsc_floor_plain(x, fold_outputs)
+        if mode == "init":
+            return cloudsc_init_plain(x, c, fold_outputs)
+        return cloudsc_fused_plain(x, c, fold_outputs)
+    if isinstance(x, FoldedPack):
+        check_kernel_args(x, c)
+        return _launch(f"cloudsc_{_BODIES[mode]}", x.form, like,
+                       (x.pack.data_ptr(), x.col.data_ptr()),
+                       (x.nlev, x.ncol, len(x.rows)), c, consts, lib, mode,
+                       fold_outputs)
     check_kernel_config(c)
-    refuse_grad(*(t for _, t in table), fields["plsm"], consts)
-    version = kernel_version(c, UNFOLDED_FORM, fold_outputs)
-    from . import build
+    n = len(table)
+    ptrs = ((ctypes.c_void_p * n)(*(t.data_ptr() for _, t in table)),
+            (ctypes.c_int * n)(*(t.shape[0] for _, t in table)),
+            *(x[name].data_ptr() for name, _ in FLAG_DTYPES))
+    return _launch("cloudsc_fused_rows", UNFOLDED_FORM, like, ptrs,
+                   (*like.shape, n), c, consts, lib, mode, fold_outputs)
 
-    lib = build.load_library(version=version)
-    pt = fields["pt"]
+
+def _launch(entry: str, form: dict, like: torch.Tensor, ptrs: tuple,
+            dims: tuple, c, consts, lib, mode: str, fold_outputs: bool):
+    """K1's launch, the same for both C entry kinds (`cloudsc_<body>_<t>`
+    on a pack, `cloudsc_fused_rows_<t>` on a dict's rows, whose inputs
+    `cloudsc_fused` has checked): the version and its library, the
+    constants vector, the three output buffers, the launch on the current
+    stream of `like`'s card with the input pointers `ptrs` and `dims`
+    (nlev, ncol, nrows), the counts, and the launch's error."""
+    version = kernel_version(c, form, fold_outputs)
+    if lib is None:
+        from . import build
+
+        lib = build.load_library(version=version)
     if consts is None:
-        consts = const_vector(c, pt.device)
-    if consts.dtype != torch.float64 or consts.device != pt.device \
+        consts = const_vector(c, like.device)
+    if consts.dtype != torch.float64 or consts.device != like.device \
             or consts.numel() != len(CONST_NAMES):
-        raise ValueError("consts must be const_vector(c) on the fields' "
+        raise ValueError("consts must be const_vector(c) on the inputs' "
                          "device")
-    (nlev, ncol), nrows = pt.shape, len(table)
-    o_lev = pt.new_empty((nlev, len(OLEV_ROWS), ncol))
-    o_half = pt.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)), ncol))
-    o_prainfrac = pt.new_empty((ncol,))
-    rows = (ctypes.c_void_p * nrows)(*(t.data_ptr() for _, t in table))
-    heights = (ctypes.c_int * nrows)(*(t.shape[0] for _, t in table))
-    t = "f32" if c.dtype == torch.float32 else "f64"
-    fn = getattr(lib, f"cloudsc_fused_rows_{t}")
-    with torch.cuda.device(pt.device):
+    nlev, ncol, nrows = dims
+    o_lev = like.new_empty((nlev, len(OLEV_ROWS), ncol))
+    o_half = like.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)), ncol))
+    o_prainfrac = like.new_empty((ncol,))
+    name = f"{entry}_{'f32' if like.dtype == torch.float32 else 'f64'}"
+    with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(rows, heights, *(fields[n].data_ptr() for n, _ in
-                                 FLAG_DTYPES),
-                consts.data_ptr(), o_lev.data_ptr(), o_half.data_ptr(),
-                o_prainfrac.data_ptr(), nlev, ncol, nrows, stream)
-    tracing.count("ops.k1")
-    tracing.count("launches.k1.version", key=version)
-    tracing.count("launches.k1.in_place")
+        rc = getattr(lib, name)(
+            *ptrs, consts.data_ptr(), o_lev.data_ptr(), o_half.data_ptr(),
+            o_prainfrac.data_ptr(), nlev, ncol, nrows, stream)
+    if mode == "full":
+        tracing.count("ops.k1")
+        tracing.count("launches.k1.version", key=version)
+        if entry == "cloudsc_fused_rows":
+            tracing.count("launches.k1.in_place")
+    else:
+        tracing.count(f"launches.k1.{mode}")
     if rc != 0:
-        raise RuntimeError(f"cloudsc_fused_rows launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{name} ({mode}) launch failed: CUDA error {rc}")
     return o_lev, o_half, o_prainfrac
 
 
@@ -940,14 +921,15 @@ def occupancy(dtype, lib=None, rows: bool = False) -> dict:
     return dict(zip(OCCUPANCY_KEYS, out))
 
 
-def _state_raw(get, p: FoldedPack) -> dict:
-    """Section 1's inputs (`scheme.level_init`'s `raw`) through `get(row)`:
-    the folded contract (ztp1_in, zqv_in, za_in, zqx_cld_in, and the curve
-    rows of the fc form), or the unfolded one (pt, pq, pa, the tendencies,
-    pclv), whose x + PTSPHY*tend level_init forms at working precision."""
-    if p.fold_inputs:
+def _state_raw(get, form: dict) -> dict:
+    """Section 1's inputs (`scheme.level_init`'s `raw`) through `get(row)`
+    for an input of `form` (`FoldedPack.form`): the folded contract
+    (ztp1_in, zqv_in, za_in, zqx_cld_in, and the curve rows of the fc
+    form), or the unfolded one (pt, pq, pa, the tendencies, pclv), whose
+    x + PTSPHY*tend level_init forms at working precision."""
+    if form["fold_inputs"]:
         raw = {n: get(n) for n in ("ztp1_in", "zqv_in", "za_in", "pap")
-               + (CURVE_ROWS if p.fc else ())}
+               + (CURVE_ROWS if form["fc"] else ())}
         raw["zqx_cld_in"] = [get(f"zqx{m}_in") for m in range(4)]
         return raw
     raw = {n: get(n) for n in ("pt", "pq", "pa", "pap", "tendency_tmp_t",
@@ -957,40 +939,56 @@ def _state_raw(get, p: FoldedPack) -> dict:
     return raw
 
 
-def _pmf(get, p: FoldedPack):
+def _pmf(get, form: dict):
     """PMFU+PMFD through `get(row)`: the folded row, or the sum at working
     precision (pallas_cloudsc._sub_level's `raw["pmfu"] + raw["pmfd"]`)."""
-    return get("pmf") if p.fold_inputs else get("pmfu") + get("pmfd")
+    return get("pmf") if form["fold_inputs"] else get("pmfu") + get("pmfd")
 
 
-def cloudsc_fused_plain(p: FoldedPack, c, fold_outputs: bool = True):
+def cloudsc_fused_plain(x, c, fold_outputs: bool = True):
     """The plain PyTorch version of the kernel: the level loop of the Pallas
     `_kernel` / `_sub_level` / `_write_level_rows` (pallas_cloudsc.py:474-742)
     over `(ncol,)` rows, calling `scheme.level_init` / `level_step`, on a
-    folded or an unfolded pack; without `fold_outputs` it also writes the
-    four derivable flux rows (PFSQLTUR/ITUR as running sums, PFHPSL/N from
-    PFPLSL/N). Runs on whatever device the pack is on."""
-    pack, col = p.pack, p.col
-    nlev, ncol = p.nlev, p.ncol
-    ridx = {name: i for i, name in enumerate(p.rows)}
-    aer = p.rows[len(pack_rows(p.fc, p.fn, p.fd, (), p.fold_inputs)):]
+    folded or an unfolded pack, or on a plain field dict that
+    `rows_in_place` takes, read as the Rows policy reads it: through its
+    `row_table`, row r of level lev at level min(lev, h_r - 1), PLSM,
+    LDCUM and KTYPE in their own dtypes. Without `fold_outputs` it also
+    writes the four derivable flux rows (PFSQLTUR/ITUR as running sums,
+    PFHPSL/N from PFPLSL/N). Runs on whatever device the input is on."""
+    if isinstance(x, FoldedPack):
+        like, nlev, form = x.pack, x.nlev, x.form
+        ridx = {name: i for i, name in enumerate(x.rows)}
+        aer = x.rows[len(pack_rows(x.fc, x.fn, x.fd, (), x.fold_inputs)):]
+
+        def P(k, name):
+            return x.pack[k, ridx[name]]
+
+        plsm, ldcum, ktype, paph_surf = x.col[0], x.col[1] > 0.5, \
+            x.col[2].to(torch.int32), x.col[3]
+    else:
+        like, form, aer = x["pt"], UNFOLDED_FORM, aer_rows(c)
+        nlev = like.shape[0]
+        rows = dict(row_table(x, c))
+
+        def P(k, name):
+            t = rows[name]
+            return t[min(k, t.shape[0] - 1)]
+
+        plsm, ldcum, ktype, paph_surf = x["plsm"], x["ldcum"], x["ktype"], \
+            x["paph"][nlev]
+    ncol = like.shape[-1]
     ktop = c.NCLDTOP - 1
     zqtmst, ptsphy = c.zqtmst, c.ptsphy
-    dev = pack.device
+    dev = like.device
 
-    def P(k, name):
-        return pack[k, ridx[name]]
-
-    o_lev = pack.new_empty((nlev, len(OLEV_ROWS), ncol))
-    o_half = pack.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)), ncol))
-    zero = pack.new_zeros((ncol,))
+    o_lev = like.new_empty((nlev, len(OLEV_ROWS), ncol))
+    o_half = like.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)), ncol))
+    zero = like.new_zeros((ncol,))
     carry = scheme.initial_carry(zero, c)
     ztp1_prev = za_prev = pap_prev = zero
     a_lf = a_if = a_lng = a_nng = a_ltur = a_itur = zero
     alf_prev = aif_prev = alng_prev = anng_prev = zero
     rain_prev = snow_prev = lnegr_prev = lnegs_prev = zero
-    plsm, ldcum, ktype, paph_surf = col[0], col[1] > 0.5, \
-        col[2].to(torch.int32), col[3]
 
     for k in range(nlev + 1):
         # section 8 flux rows for half-level k, the state before level k
@@ -1011,7 +1009,7 @@ def cloudsc_fused_plain(p: FoldedPack, c, fold_outputs: bool = True):
         def get(name):
             return P(k, name)
 
-        raw = _state_raw(get, p)
+        raw = _state_raw(get, form)
         raw.update({n: get(n) for n in ("pvervel", "plude", "psnde",
                                          "psupsat", "pvfl", "pvfi")})
         ini = scheme.level_init(raw, c)
@@ -1023,7 +1021,7 @@ def cloudsc_fused_plain(p: FoldedPack, c, fold_outputs: bool = True):
                 ini["tend_t_pre"], ini["tend_q_pre"], zero
             zqxn_eff = [zero] * NCLV
         else:
-            x = dict(
+            y = dict(
                 ztp1=ini["ztp1"], za=ini["za"], zaorig=ini["zaorig"],
                 zqx=ini["zqx"], zqsmix=ini["zqsmix"], zqsliq=ini["zqsliq"],
                 zqsice=ini["zqsice"], zfoeew=ini["zfoeew"],
@@ -1036,11 +1034,11 @@ def cloudsc_fused_plain(p: FoldedPack, c, fold_outputs: bool = True):
                 ztp1_prev=ztp1_prev, za_prev=za_prev,
                 pap=raw["pap"], pap_prev=pap_prev,
                 paph=paph_k, paph_next=paph_k1, paph_surf=paph_surf,
-                pmf=_pmf(get, p),
-                pmf_next=_pmf(lambda n: P(k + 1, n), p),
+                pmf=_pmf(get, form),
+                pmf_next=_pmf(lambda n: P(k + 1, n), form),
                 plu_next=P(k + 1, "plu"),
                 pvervel=raw["pvervel"],
-                zhr=get("zhr") if p.fold_inputs
+                zhr=get("zhr") if form["fold_inputs"]
                 else get("phrsw") + get("phrlw"),
                 plude_in=raw["plude"], psnde=raw["psnde"],
                 psupsat=raw["psupsat"],
@@ -1049,12 +1047,12 @@ def cloudsc_fused_plain(p: FoldedPack, c, fold_outputs: bool = True):
                 not_last=torch.tensor(k < nlev - 1, device=dev),
             )
             for name in aer:
-                x[name] = P(k, name)
-            if p.fn:
-                x["zdqs"] = P(k, ZDQS_ROW)
-            if p.fd:
-                x.update({n: P(k, n) for n in DEP_ROWS})
-            carry, ys = scheme.level_step(x, carry, c)
+                y[name] = P(k, name)
+            if form["fn"]:
+                y["zdqs"] = P(k, ZDQS_ROW)
+            if form["fd"]:
+                y.update({n: P(k, n) for n in DEP_ROWS})
+            carry, ys = scheme.level_step(y, carry, c)
             plude_row, pcovptot_row = ys["plude"], ys["pcovptot"]
             tend_t_row, tend_q_row, tend_a_row = \
                 ys["tend_t"], ys["tend_q"], ys["tend_a"]
@@ -1113,7 +1111,8 @@ def cloudsc_init_plain(p: FoldedPack, c, fold_outputs: bool = True):
     """Plain version of the `init` body: section 1 (`scheme.level_init`,
     elementwise, here over all levels at once) and ztp1 + zqsmix + zfokoop +
     zli in every output row of level k."""
-    ini = scheme.level_init(_state_raw(lambda n: p.pack[:, p.row(n)], p), c)
+    ini = scheme.level_init(
+        _state_raw(lambda n: p.pack[:, p.row(n)], p.form), c)
     v = ini["ztp1"] + ini["zqsmix"] + ini["zfokoop"] + ini["zli"]
     return _diagnostic_outputs(v, p.nlev, fold_outputs)
 
@@ -1310,21 +1309,14 @@ class FusedStep(torch.nn.Module):
     """The step with its constants held as a buffer: `derived_consts` for
     the working dtype and the kernel's flat constants vector. It takes a
     pack, or a plain field dict, and returns the raw buffers (`assemble`
-    takes the same pack or dict). On the card it launches the build of its
-    own scheme version, the pack's form and its output rows
-    (`kernel_version`). A field dict on a CUDA card that K1 can read where
-    it lies (`rows_in_place`: every row a contiguous `(h, ncol)` tensor of
-    the working dtype on one device, the flags bool and int32) goes to the
-    unfolded build's Rows policy with no pack (`cloudsc_fused_rows`,
-    counted in `launches.k1.in_place`); any other dict, and every dict on
-    the CPU, is packed on its device (`pack_inputs`, unfolded, counted in
-    `ops.pack`) each call and the pack launched. The choice follows the
-    input alone."""
+    takes the same pack or dict) of one `cloudsc_fused` call: on the card
+    the build of its own scheme version, the input's form and its output
+    rows (`kernel_version`), a dict read in place; a dict that
+    `rows_in_place` refuses raises. It never packs."""
 
     def __init__(self, params, ptsphy: float, dtype, config=None,
                  fold_outputs: bool = True):
         super().__init__()
-        self.params, self.ptsphy, self.config = params, ptsphy, config
         self.fold_outputs = fold_outputs
         self.c = scheme.derived_consts(params, ptsphy, dtype, config)
         self.register_buffer("consts", const_vector(self.c), persistent=False)
@@ -1342,26 +1334,13 @@ class FusedStep(torch.nn.Module):
 
     def forward(self, x):
         with tracing.span("cloudsc.step"):
-            packed = isinstance(x, FoldedPack)
-            dev = x.pack.device if packed else x["pt"].device
-            FEED.check(dev)
-            table = None
-            if not packed and dev.type == "cuda":
-                table, _ = _in_place_table(x, self.c)
-            if not packed and table is None:
-                with tracing.span("cloudsc.pack"):
-                    x = pack_inputs(x, self.params, self.config, self.ptsphy)
-            tracing.count("columns", x.ncol if table is None
-                          else x["pt"].shape[-1])
+            like = x.pack if isinstance(x, FoldedPack) else x["pt"]
+            FEED.check(like.device)
+            tracing.count("columns", like.shape[-1])
             with tracing.span("cloudsc.k1"):
-                consts = self.consts_on(dev)
-                if table is None:
-                    res = cloudsc_fused(x, self.c, consts,
-                                        fold_outputs=self.fold_outputs)
-                else:
-                    res = _launch_rows(table, x, self.c, consts,
-                                       self.fold_outputs)
-            FEED.issued(dev)
+                res = cloudsc_fused(x, self.c, self.consts_on(like.device),
+                                    fold_outputs=self.fold_outputs)
+            FEED.issued(like.device)
             return res
 
 
@@ -1369,11 +1348,10 @@ def cloudsc_fused_fields(fields: dict, params, ptsphy, config=None,
                          fold_outputs: bool | None = None) -> CloudscOutputs:
     """The per-field entry (pallas_cloudsc.cloudsc_pallas on a field dict):
     one step over a plain `make_inputs` field dict, on the fields' device —
-    the `physics.cloudsc` contract, through `FusedStep`: on the card the
-    unfolded build reads the fields in place (`cloudsc_fused_rows`), or
-    from the unfolded pack copied there (`pack_inputs`; no arithmetic, no
-    host fold) where the dict's layout does not allow it; on the CPU the
-    plain version runs on that pack.
+    the `physics.cloudsc` contract, through `FusedStep`: the dict read in
+    place (`cloudsc_fused`: on the card the unfolded build's Rows policy,
+    on the CPU the plain version through its row table), with no pack; a
+    dict `rows_in_place` refuses raises.
     `fold_outputs` (default: CLOUDSC_FOLD_OUTPUTS) leaves the four
     derivable flux rows to `assemble`."""
     fo = fold_outputs_flag() if fold_outputs is None else fold_outputs

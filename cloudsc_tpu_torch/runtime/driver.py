@@ -13,11 +13,11 @@ src/cloudsc_cuda/cloudsc/cloudsc_driver.cu, README.md:311-318). Two engines
     with `device="cpu"`. The JAX driver's switches, read once at
     construction, choose the payload: CLOUDSC_PACKED_STORAGE (default 1:
     the pack built on the host; 0: the plain field dict of the scan
-    engine, padded as it pads, which each step packs on the card,
-    unfolded, `cuda_cloudsc.pack_inputs`: the per-field entry); the pack's
-    form from CLOUDSC_FOLD_INPUTS (default 1: section 1's state sums and
-    the summed pairs folded in fp64 on the host; 0: the unfolded pack, the
-    kernel forming them, with the in-line CUADJTQ),
+    engine, padded as it pads, which each step reads in place, with no
+    pack, `cuda_cloudsc.cloudsc_fused` on the dict: the per-field entry);
+    the pack's form from CLOUDSC_FOLD_INPUTS (default 1: section 1's state
+    sums and the summed pairs folded in fp64 on the host; 0: the unfolded
+    pack, the kernel forming them, with the in-line CUADJTQ),
     CLOUDSC_FOLD_NEWTON (default 1: the streamed ZDQS row; 0: the
     kernel's in-line CUADJTQ), CLOUDSC_FOLD_CURVES and CLOUDSC_FOLD_DEP
     (default 0: the saturation curves and the deposition chain computed in

@@ -1,9 +1,9 @@
 """K1 reading a plain field dict in place, on the CPU: the layout check
 (`rows_in_place`), the row table the Rows policy of csrc/cloudsc_fused.cu
 reads (`row_table`), its clamp rule against the device pack it replaces
-(`pack_inputs`), the step's choice between the two, and the ptxas keys of
-the two policies' builds. The launch itself needs a card
-(`tests/test_torch_cuda.py`).
+(`pack_inputs`), the plain version reading the dict through that table,
+and the ptxas keys of the two policies' builds. The launch itself needs a
+card (`tests/test_torch_cuda.py`).
 
   * `rows_in_place` takes `physics.cloudsc.make_inputs`' dict and
     `cellbench.inputs.field_dict`'s, fp32 and fp64, for the reference
@@ -15,8 +15,11 @@ the two policies' builds. The launch itself needs a card
   * reading row r of level lev at level min(lev, h_r - 1), as the kernel
     does, rebuilds `pack_inputs(fields).pack` bit for bit, and the flags in
     their own dtypes read as the pack's `col` does;
-  * on the CPU the step packs (`ops.pack` 56 a step) and launches nothing
-    in place; `cloudsc_fused_rows` refuses what it cannot read.
+  * on the CPU the step reads the dict through its row table and packs
+    nothing (`ops.pack` 0), its outputs bit for bit the plain version's on
+    `pack_inputs(fields)`, for the reference configuration and the aerosol
+    build; `cloudsc_fused` and the step refuse a dict that `rows_in_place`
+    refuses, naming the row, and a dict with a diagnostic body.
 """
 
 import pytest
@@ -89,14 +92,35 @@ def _faults():
     }
 
 
+# the row each fault names in the refusal
+NAMED = {"transposed": "pq", "sliced_columns": "pa", "sliced_levels": "paph",
+         "strided_species": "pclv0", "wrong_dtype": "pvfl",
+         "plsm_dtype": "plsm", "ldcum_not_bool": "ldcum",
+         "ktype_not_int32": "ktype", "missing_row": "psupsat"}
+
+
 @pytest.mark.parametrize("fault", list(_faults()))
 def test_rows_in_place_refuses(fault):
+    """`cloudsc_fused` and the step raise on a dict `rows_in_place`
+    refuses, naming the row; nothing is packed or run."""
     dtype = torch.float32
-    *_, c, fields = _case("reference", dtype)
+    inp, params, _, c, fields = _case("reference", dtype)
     bad = _faults()[fault](fields, dtype)
     assert not cc.rows_in_place(bad, c)
-    with pytest.raises(ValueError, match="in place"):
-        cc.cloudsc_fused_rows(bad, c)
+    tracing.reset()
+    with pytest.raises(ValueError, match=f"in place: .*{NAMED[fault]}"):
+        cc.cloudsc_fused(bad, c)
+    with pytest.raises(ValueError, match=f"in place: .*{NAMED[fault]}"):
+        cc.FusedStep(params, inp.ptsphy, dtype)(bad)
+    assert tracing.counter("ops.pack") == tracing.counter("pack_bytes") == 0
+
+
+@pytest.mark.parametrize("mode", ["floor", "init"])
+def test_a_dict_runs_the_full_body_only(mode):
+    """The diagnostic bodies read a pack: on a dict they raise."""
+    *_, c, fields = _case("reference", torch.float64, ncol=8)
+    with pytest.raises(ValueError, match="full body"):
+        cc.cloudsc_fused(fields, c, mode=mode)
 
 
 @pytest.mark.parametrize("case", ["reference", "aerosol"])
@@ -137,23 +161,27 @@ def test_clamp_rule_rebuilds_the_device_pack(precision, case):
     assert torch.equal(fields["paph"][nlev], p.col[3])
 
 
+@pytest.mark.parametrize("case", ["reference", "aerosol"])
 @pytest.mark.parametrize("precision", ["fp32", "fp64"])
-def test_cpu_step_packs_and_reads_nothing_in_place(precision):
-    """On the CPU the step packs a dict `rows_in_place` takes: 56 pack
-    operations a step, no launch in place, and the plain version's
-    outputs; `cloudsc_fused_rows` refuses a CPU dict."""
+def test_cpu_step_packs_and_reads_nothing_in_place(precision, case):
+    """On the CPU the step reads a dict through its row table, as the Rows
+    policy does, and packs nothing (`ops.pack` and `pack_bytes` 0, no
+    launch): its raw buffers are the plain version's on
+    `pack_inputs(fields)` bit for bit, the aerosol build's extra rows
+    included."""
     dtype = DTYPES[precision]
-    inp, params, _, c, fields = _case("reference", dtype, ncol=8)
-    assert cc.rows_in_place(fields, c)
-    step = cc.FusedStep(params, inp.ptsphy, dtype)
+    inp, params, config, c, fields = _case(case, dtype, ncol=8)
+    step = cc.FusedStep(params, inp.ptsphy, dtype, config)
     tracing.reset()
-    for _ in range(2):
-        cc.assemble(step(fields), fields, step.c)
-    assert tracing.counter("ops.pack") == 2 * 56
-    assert tracing.counter("launches.k1.in_place") == 0
-    assert tracing.counter("ops.k1") == 0
-    with pytest.raises(ValueError, match="CUDA"):
-        cc.cloudsc_fused_rows(fields, c)
+    got = step(fields)
+    assert [tracing.counter(n) for n in ("ops.pack", "pack_bytes", "ops.k1",
+                                         "launches.k1.in_place")] == [0] * 4
+    assert tracing.counter("columns") == 8
+    want = cc.cloudsc_fused_plain(cc.pack_inputs(fields, params, config), c)
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a.view(ints), b.view(ints))
 
 
 @pytest.mark.parametrize("mangled,key", [

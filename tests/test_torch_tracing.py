@@ -6,10 +6,10 @@
   * under a CPU `torch.profiler` each `cloudsc.*` span is a kineto CPU
     event that is not a user annotation (a `record_function` range would
     be copied onto the device timeline); with no profiler no range opens;
-  * one step on a tiny field dict: `ops.pack` and `ops.assemble` equal
-    the writing aten operations a `TorchDispatchMode` sees inside
-    `cloudsc.pack` and `cloudsc.assemble` (views and bare allocations
-    left out), and the step's device operations repeat over seeds and
+  * `ops.pack` and `ops.assemble` equal the writing aten operations a
+    `TorchDispatchMode` sees inside `pack_inputs` and `cloudsc.assemble`
+    (views and bare allocations left out); one step on a tiny field dict
+    packs nothing, and its device operations repeat over seeds and
     precisions;
   * the benchmark's readers (`cellbench/metrics/enqueue_ms*.py`,
     `device_ops*.py`) read the window's steps and nothing without the
@@ -158,15 +158,15 @@ def test_profiler_ranges_are_cpu_events_not_user_annotations():
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with tracing.span("cloudsc.step"):
-            with tracing.span("cloudsc.pack"):
+            with tracing.span("cloudsc.k1"):
                 torch.ones(4).add_(1)
     events = [e for e in prof.profiler.kineto_results.events()
               if e.name().startswith("cloudsc.")]
-    assert sorted(e.name() for e in events) == ["cloudsc.pack",
+    assert sorted(e.name() for e in events) == ["cloudsc.k1",
                                                  "cloudsc.step"]
     assert all(e.device_type() == DeviceType.CPU for e in events)
     assert not any(e.is_user_annotation() for e in events)
-    assert all(s.profiled for n in ("cloudsc.step", "cloudsc.pack")
+    assert all(s.profiled for n in ("cloudsc.step", "cloudsc.k1")
                for s in tracing.records(n))
 
 
@@ -203,13 +203,14 @@ def test_layer_counts_equal_dispatched_writes(tiny, dtype, fold_outputs):
     tracing.reset()
     with LayerWrites() as m:
         cc.assemble(step(fields), fields, step.c, fold_outputs)
-    assert tracing.counter("ops.pack") == m.ops["cloudsc.pack"] > 0
+        assert tracing.counter("ops.pack") == 0    # the step never packs
+        with tracing.span("pack_inputs"):
+            p = cc.pack_inputs(fields, params)
+    assert tracing.counter("ops.pack") == m.ops["pack_inputs"] > 0
     assert tracing.counter("ops.assemble") == \
         m.ops["cloudsc.assemble"] + m.ops["cloudsc.foldo"] > 0
     assert tracing.counter("ops.k1") == 0      # the plain version launches
-    p = cc.pack_inputs(fields, params)
-    assert tracing.counter("pack_bytes") == 2 * (p.pack.nbytes
-                                                 + p.col.nbytes)
+    assert tracing.counter("pack_bytes") == p.pack.nbytes + p.col.nbytes
     assert tracing.counter("columns") == NCOL
 
 
@@ -224,11 +225,11 @@ def test_device_ops_repeat_over_seeds_and_precisions(tiny):
             cc.assemble(step(fields), fields, step.c)
             per_step.add(_step_ops() - before)
     assert len(per_step) == 1
-    # the pack's 53 copies, 2 casts and stack; the flux rows' 559 (the
-    # CPU path's plain loop: on the card csrc/foldo.cu is one launch, and a
-    # step issues 60, tests/test_torch_cuda.py) and the cloud tendencies' 2
-    # (K1 launches nothing on the CPU)
-    assert per_step == {56 + 561}
+    # no pack; the flux rows' 559 (the CPU path's plain loop: on the card
+    # csrc/foldo.cu is one launch, and a step issues 4,
+    # tests/test_torch_cuda.py) and the cloud tendencies' 2 (K1 launches
+    # nothing on the CPU)
+    assert per_step == {561}
 
 
 def _reader(name):
@@ -267,7 +268,7 @@ def test_readers_read_the_window(tiny, monkeypatch, suffix):
         sums[1], rel=1e-12)
     assert _reader("enqueue_ms.assemble" + suffix).read(run) == \
         pytest.approx(asm[1], rel=1e-12)
-    assert _reader("device_ops" + suffix).read(run) == 56 + 561
+    assert _reader("device_ops" + suffix).read(run) == 561
     assert _reader("device_ops" + suffix).read(
         types.SimpleNamespace(loop="dwarf", units=3, chips=1)) is None
     # a program without the registry (the parent's) reads nothing
