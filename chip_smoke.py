@@ -9,8 +9,10 @@ failed check (the script then exits non-zero and prints no result):
 
   0. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc
      versions, the kernel builds, all started together (the default
-     library, and K1 alone for each scheme version of VERSION_CASES and
-     each form build of `data.synthetic.FORM_CASES`; seconds,
+     library, and K1 alone for each scheme version of VERSION_CASES,
+     each form build of `data.synthetic.FORM_CASES` and the field dict's
+     build, `cuda_cloudsc.ROWS_FORM`, whose Rows policy is read and whose
+     zdqs_kernel's registers are printed; seconds,
      ptxas registers and spills), K1's ring geometry and occupancy in each
      precision and build (S, BLOCK, MIN_BLOCKS, dynamic shared memory,
      registers, spills, blocks an SM; the library's geometry must be
@@ -89,14 +91,19 @@ failed check (the script then exits non-zero and prints no result):
      pack and H2D;
   3p. the per-field entry at the same size: in fp32 the main path with
      CLOUDSC_PACKED_STORAGE=0 (the field dict on the card, read in place
-     by the unfolded build) with the per-version and in-place counts reset
-     and read (every launch in place), bit for bit with the
-     CLOUDSC_FOLD_INPUTS=0 main path (none in place) and with
+     by the unfolded build) with the per-version, in-place and zdqs_kernel
+     counts reset and read (every launch in place, after one zdqs_kernel
+     launch), bit for bit with the CLOUDSC_FOLD_INPUTS=0 main path (none in
+     place, no zdqs_kernel launch) and with
      `cuda_cloudsc.cloudsc_fused_fields` on the card's field dict; in fp32
-     and fp64 `cuda_cloudsc.cloudsc_fused` on the card's field dict (the
-     Rows policy) bit for bit with the plain version on the same dict, its
-     time beside its bound (a `cloudsc_fused_rows` row in the kernel
-     table);
+     and fp64 `cuda_cloudsc.cloudsc_fused` on the card's field dict
+     (zdqs_kernel, then the Rows policy) bit for bit with the plain version
+     on the same dict, its time beside its bound (a `cloudsc_fused_rows` row
+     in the kernel table); zdqs_kernel (`zdqs_row`) alone bit for bit with
+     `zdqs_plain`, its time beside its bound and the plain version's (one
+     `timing zdqs_kernel` line, a `zdqs_kernel` row in the kernel table
+     with the main path's zdqs_kernel launches and the comparison's max abs
+     err);
   3l. the main path in fp32 in the cyclic (CLOUDSC_GROUP_COLUMNS=0) and the
      grouped unsorted (CLOUDSC_GROUP_SORT=0) layouts: every field equal to
      the sorted main path's bit for bit after the ungroup;
@@ -211,6 +218,18 @@ OVERLAP_TOL = 1e-6
 # cloudsc_scheme.cuh::level_init (+, -, *, / and exp as one each) plus the
 # body's three adds, a level
 INIT_FLOP_PER_LEVEL = 81
+# zdqs_kernel's operations an element, counted from cloudsc_scheme.cuh's
+# level_zdqs (+, -, *, /, min, max and exp as one each): ZTP1 2, FOEALFA 6,
+# sat_mix 20, cuadj_zdqs 130 (51 a Newton iteration)
+ZDQS_FLOP_PER_ELEMENT = 158
+# zdqs_kernel's rows read a level it computes (those below the cloud top):
+# PT, TENDENCY_TMP_T, PAP, PAPH, PMFU, PMFD, PVERVEL, PHRSW and PHRLW, each
+# once (PAPH's surface level and the clamped k+1 reads come from the
+# cache); the ZDQS row is written on every level, 0 above the cloud top
+ZDQS_ROWS_READ = 9
+# `_device_ms`'s spin, in clock cycles: ~40 ms at the H100's 1.98 GHz,
+# some 4 times the host's issue of ITERATIONS zdqs_row calls
+SPIN_CYCLES = 80_000_000
 # a column count that is neither a multiple of K1's block nor of 4
 RAGGED_NCOL = 16387
 # the card's validation norms against the host's, relative, per field and
@@ -256,9 +275,11 @@ def scheme_versions(inp, params) -> dict:
     return out
 
 
-def phase0_environment(versions):
+def phase0_environment(versions, rows_version):
     """Returns (card, {version name: {"f32"|"f64": (registers, spill store
-    bytes, blocks an SM)}}) for the default build and each of `versions`."""
+    bytes, blocks an SM)}}) for the default build, each of `versions` and,
+    as "rows", the field dict's build `rows_version` (its Rows policy; the
+    record adds zdqs_kernel's registers and spill store bytes)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -275,10 +296,11 @@ def phase0_environment(versions):
     print(f"nvcc: {nvcc.strip().splitlines()[-1]}")
     # every build at once: each runs one nvcc a source, all in parallel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1 + len(versions)) as ex:
+    with ThreadPoolExecutor(2 + len(versions)) as ex:
         jobs = {"default": ex.submit(build.build)}
         jobs.update({name: ex.submit(build.build, False, version=v)
-                     for name, v in versions.items()})
+                     for name, v in {**versions,
+                                     "rows": rows_version}.items()})
         paths = {name: job.result() for name, job in jobs.items()}
     print(f"builds: {len(paths)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -292,18 +314,26 @@ def phase0_environment(versions):
     resources = {}
     for vname, path in paths.items():
         ptxas = build.parse_ptxas((path.parent / "ptxas.log").read_text())
-        lib = build.load_library(version=versions.get(vname))
+        rows = vname == "rows"
+        lib = build.load_library(
+            version=rows_version if rows else versions.get(vname))
         resources[vname] = {}
         for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
-            occ = cc.occupancy(dtype, lib)
+            occ = cc.occupancy(dtype, lib, rows=rows)
             if (occ["stages"], occ["block"], occ["min_blocks"]) != \
                     (g.stages, g.block, g.min_blocks) \
                     or occ["blocks_per_sm"] < 1:
                 raise RuntimeError(f"K1 {vname} {name}: the library runs "
                                    f"{occ}, RING is {g}")
-            r = ptxas[f"fused_{name}"]
+            r = ptxas[f"fused_{name}" + ("_rows" if rows else "")]
             resources[vname][name] = (r["registers"], r["spill_stores"],
                                       occ["blocks_per_sm"])
+            if rows:
+                z = ptxas[f"zdqs_{name}"]
+                resources[vname][name] += (z["registers"], z["spill_stores"])
+                print(f"zdqs_kernel {name}: {z['registers']} registers, "
+                      f"{z['spill_stores']} B spill stores, "
+                      f"{z['stack']} B stack (ptxas)")
             print(f"K1 {vname} {name}: S={occ['stages']}, BLOCK={occ['block']}, "
                   f"MIN_BLOCKS={occ['min_blocks']}, dynamic shared memory "
                   f"{occ['smem_bytes']} B a block; "
@@ -340,6 +370,36 @@ def _event_ms(fn, iterations):
     from cloudsc_tpu_torch.bench.timing import event_ms
 
     return event_ms(fn, iterations, warmup=1)
+
+
+def _device_ms(fn, iterations):
+    """ms a call of `fn` on the card alone: one warm-up call, then
+    `iterations` calls issued while a spin kernel (`torch.cuda._sleep`)
+    holds the stream, between CUDA events, so that a call whose host issue
+    is as long as its kernel (zdqs_row's checks and row table, against a
+    0.38 ms fp32 kernel) is timed by its kernel. Raises if the spin ended
+    before the last call was issued."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin_start, start, stop = (torch.cuda.Event(enable_timing=True)
+                               for _ in range(3))
+    spin_start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iterations):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    stop.synchronize()
+    spin_ms = spin_start.elapsed_time(start)
+    if issue_ms >= spin_ms:
+        raise RuntimeError(f"the spin ({spin_ms:.2f} ms) ended before the "
+                           f"{iterations} calls were issued "
+                           f"({issue_ms:.2f} ms)")
+    return start.elapsed_time(stop) / iterations
 
 
 def _check_fields(tag, got, want):
@@ -1015,19 +1075,24 @@ def phase_fields_entry(inp, params):
             out, t, _ = driver.run(inp, iterations=ITERATIONS,
                                    fetch_outputs=False)
         return driver, out, t, tracing.keyed("launches.k1.version"), \
-            tracing.counter("launches.k1.in_place")
+            tracing.counter("launches.k1.in_place"), \
+            tracing.counter("launches.zdqs")
 
-    driver, fields_out, t_fields, launches, in_place = run(
+    driver, fields_out, t_fields, launches, in_place, zdqs_launches = run(
         {"CLOUDSC_PACKED_STORAGE": "0"})
-    v = cc.kernel_version(driver.step.c, cc.UNFOLDED_FORM)
+    v = cc.kernel_version(driver.step.c, cc.ROWS_FORM)
     if launches != {v: 1 + ITERATIONS} or in_place != launches[v] or \
+            zdqs_launches != launches[v] or \
             driver.config_name("cuda") != "cuda/fields+unfold+foldo":
         raise RuntimeError(f"per-field main path: launches {launches}, in "
-                           f"place {in_place}, {driver.config_name('cuda')}")
-    _, pack_out, t_pack, _, pack_in_place = run({"CLOUDSC_FOLD_INPUTS": "0"})
-    if pack_in_place != 0:
+                           f"place {in_place}, zdqs_kernel {zdqs_launches}, "
+                           f"{driver.config_name('cuda')}")
+    _, pack_out, t_pack, _, pack_in_place, pack_zdqs = run(
+        {"CLOUDSC_FOLD_INPUTS": "0"})
+    if (pack_in_place, pack_zdqs) != (0, 0):
         raise RuntimeError(f"the host-packed main path read {pack_in_place} "
-                           f"steps in place")
+                           f"steps in place, {pack_zdqs} zdqs_kernel "
+                           f"launches")
     fields = fields_on_device(inp, torch.float32, "cuda")
     entry_out = cc.cloudsc_fused_fields(fields, params, inp.ptsphy)
     for f, a, b, e in zip(pack_out._fields, fields_out, pack_out, entry_out):
@@ -1036,12 +1101,14 @@ def phase_fields_entry(inp, params):
                                f"pack's main path")
     del fields_out, pack_out, entry_out, fields
     rec = dict(launches=launches[v], in_place=in_place,
+               zdqs_launches=zdqs_launches,
                driver_ms=t_fields.compute_s * 1e3,
                unfolded_driver_ms=t_pack.compute_s * 1e3)
     print(f"phase fields entry fp32: the per-field main path "
-          f"({launches[v]} launches of the unfolded build, {in_place} in "
-          f"place), cloudsc_fused_fields and the unfolded pack's main path "
-          f"(none in place) equal bit for bit on all 21 fields")
+          f"({launches[v]} launches of the dict's build, {in_place} in "
+          f"place, {zdqs_launches} of zdqs_kernel), cloudsc_fused_fields "
+          f"and the unfolded pack's main path (none in place, the in-line "
+          f"CUADJTQ) equal bit for bit on all 21 fields")
     torch.cuda.empty_cache()
     for dtype in (torch.float32, torch.float64):
         tag = "fp64" if dtype == torch.float64 else "fp32"
@@ -1079,12 +1146,38 @@ def phase_fields_entry(inp, params):
         del got, want
         rows_ms = _event_ms(lambda: cc.cloudsc_fused(fields, c, consts),
                             ITERATIONS)
+        # zdqs_kernel alone: against its plain version, its time and bound
+        tracing.reset()
+        z = cc.zdqs_row(fields, c)
+        if tracing.counter("launches.zdqs") != 1:
+            raise RuntimeError(f"{tag}: zdqs_row counted "
+                               f"{tracing.counter('launches.zdqs')} launches")
+        start.record()
+        zp = cc.zdqs_plain(fields, c)
+        stop.record()
+        stop.synchronize()
+        zdqs_plain_ms = start.elapsed_time(stop)
+        zdqs_max_abs = float((z.double() - zp.double()).abs().max())
+        if not bool(torch.isfinite(z).all()) or not same_bits(z, zp):
+            raise RuntimeError(f"{tag}: zdqs_kernel != its plain version "
+                               f"(max abs err {zdqs_max_abs:.3e})")
+        del z, zp
+        zdqs_ms = _device_ms(lambda: cc.zdqs_row(fields, c), ITERATIONS)
+        nlev, ktop = inp.klev, c.NCLDTOP - 1
+        zdqs_bound = timing.bound(
+            (ZDQS_ROWS_READ * (nlev - ktop) + nlev + 1) * NGPTOT
+            * (8 if tag == "fp64" else 4),
+            ZDQS_FLOP_PER_ELEMENT * (nlev - ktop) * NGPTOT, tag)
         rec[tag] = dict(max_abs=max_abs, ms=rows_ms, plain_ms=plain_ms,
-                        bound=bound)
+                        bound=bound, zdqs_ms=zdqs_ms,
+                        zdqs_plain_ms=zdqs_plain_ms, zdqs_bound=zdqs_bound,
+                        zdqs_max_abs=zdqs_max_abs)
         print(f"phase fields entry {tag}: cloudsc_fused on the dict == the "
               f"plain version on the same dict bit for bit on all three "
-              f"buffers; {rows_ms:.4f} ms, bound {bound[0]:.4f} ms (by "
-              f"{bound[1]}) = {bound[0] / rows_ms:.3f} of its time")
+              f"buffers; {rows_ms:.4f} ms (zdqs_kernel and K1), bound "
+              f"{bound[0]:.4f} ms (by {bound[1]}) = "
+              f"{bound[0] / rows_ms:.3f} of its time; zdqs_kernel == "
+              f"zdqs_plain bit for bit")
         del fields, d
         torch.cuda.empty_cache()
     return rec
@@ -2004,7 +2097,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cloudsc_tpu_torch import data
+    from cloudsc_tpu_torch.kernels import cuda_cloudsc as cc
     from cloudsc_tpu_torch.params import Params
+    from cloudsc_tpu_torch.physics import scheme
     from cloudsc_tpu_torch.validate import reference_on_device
 
     t_start = time.perf_counter()
@@ -2012,7 +2107,9 @@ def main() -> int:
     params = Params.from_input(inp)
     versions = scheme_versions(inp, params)
     forms = form_versions(params, inp.ptsphy)
-    card, resources = phase0_environment({**versions, **forms})
+    card, resources = phase0_environment(
+        {**versions, **forms}, cc.kernel_version(scheme.derived_consts(
+            params, inp.ptsphy, torch.float32), cc.ROWS_FORM))
 
     k = phase1_kernel_vs_plain(inp, params)
     diag, diag_bytes = phase1a_diagnostic_bodies(inp, params)
@@ -2103,12 +2200,26 @@ def main() -> int:
           f"CLOUDSC_FOLD_INPUTS=0 {fentry['unfolded_driver_ms']:.4f} ms/step")
     for tag in ("fp32", "fp64"):
         r = fentry[tag]
+        regs, spill, blocks, zregs, zspill = resources["rows"][
+            tag.replace("fp", "f")]
         print(f"timing K1 in place {tag} [{card}]: cloudsc_fused "
-              f"{r['ms']:.4f} ms/step on the field dict (CUDA events over "
-              f"{ITERATIONS} launches at {NGPTOT} columns); bound "
+              f"{r['ms']:.4f} ms/step on the field dict (zdqs_kernel, then "
+              f"K1's Rows policy streaming its row; CUDA events over "
+              f"{ITERATIONS} calls at {NGPTOT} columns); bound "
               f"{r['bound'][0]:.4f} ms (by {r['bound'][1]}) = "
-              f"{r['bound'][0] / r['ms']:.3f} of the kernel's time; plain "
-              f"version {r['plain_ms']:.1f} ms (1 call)")
+              f"{r['bound'][0] / r['ms']:.3f} of the two kernels' time; plain "
+              f"version {r['plain_ms']:.1f} ms (1 call); K1 {regs} "
+              f"registers, {spill} B spill stores, {blocks} blocks an SM")
+    print(f"timing zdqs_kernel [{card}]: "
+          + "; ".join(
+              f"{tag} {r['zdqs_ms']:.4f} ms/step at {NGPTOT} x {nlev}, bound "
+              f"{r['zdqs_bound'][0]:.4f} ms (by {r['zdqs_bound'][1]}) = "
+              f"{r['zdqs_bound'][0] / r['zdqs_ms']:.3f} of its time, plain "
+              f"version {r['zdqs_plain_ms']:.1f} ms (1 call), "
+              f"{resources['rows'][tag.replace('fp', 'f')][3]} registers"
+              for tag, r in ((t, fentry[t]) for t in ("fp32", "fp64")))
+          + f" (CUDA events over {ITERATIONS} launches issued behind a "
+            f"spin: the kernel's time, not the host's issue)")
     print(f"timing adjoint fp64 [{card}]: d(scalar head)/d(pt) at {NGPTOT} "
           f"columns {adj_s:.3f} s in {adj_blocks} blocks, peak "
           f"{adj_peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
@@ -2316,6 +2427,20 @@ def main() -> int:
         "library_ms": None,
         "fp64": {"ms": r64["ms"], "plain_ms": r64["plain_ms"],
                  "bound_ms": r64["bound"][0], "bound_by": r64["bound"][1]}})
+    # zdqs_kernel: the per-field main path's launches (one a dict step),
+    # fp32 in the common keys, fp64 beside
+    entries.append({
+        "name": "zdqs_kernel", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": "none (the TPU kernel reads the row folded on the host "
+                    "or runs the in-line CUADJTQ in its sweep)",
+        "launches": fentry["zdqs_launches"],
+        "max_abs_err": max(r32["zdqs_max_abs"], r64["zdqs_max_abs"]),
+        "ms": r32["zdqs_ms"], "plain_ms": r32["zdqs_plain_ms"],
+        "bound_ms": r32["zdqs_bound"][0], "bound_by": r32["zdqs_bound"][1],
+        "library_ms": None,
+        "fp64": {"ms": r64["zdqs_ms"], "plain_ms": r64["zdqs_plain_ms"],
+                 "bound_ms": r64["zdqs_bound"][0],
+                 "bound_by": r64["zdqs_bound"][1]}})
     ms, pack_ms, plain_ms, (bound_ms, bound_by), lab_f, err_f = foldo["fp32"]
     ms64, pack64, plain64, (bound64, by64), lab64, err64 = foldo["fp64"]
     entries.append({

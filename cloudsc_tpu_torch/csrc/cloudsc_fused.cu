@@ -14,8 +14,9 @@
 // named by the CLOUDSC_* macros of cloudsc_scheme.cuh (SchemeConfig's four
 // switches, skips and aerosol couplings, the pack's form and the output
 // rows); the ring streams the form's rows: 19 in the main path's form, 18
-// to 30 in the other folded forms, 27 unfolded, 5 more with every aerosol
-// coupling.
+// to 30 in the other folded forms, 27 unfolded, 28 unfolded with the ZDQS
+// row that zdqs_kernel (below) writes for a field dict, 5 more with every
+// aerosol coupling.
 //
 // Schedule: the reference's own k-caching schedule. One thread owns one
 // column and integrates it top-down through all levels; the 33 cross-level
@@ -77,11 +78,12 @@
 //         clamping the level reads, at level nlev, the same values the pack's
 //         edge-replicated row nlev holds. PLSM is read in the working type,
 //         LDCUM as a byte (!= 0), KTYPE as int32, the surface pressure at
-//         PAPH's level nlev. Only the unfolded build has it (the unfolded
+//         PAPH's level nlev. Only the unfolded builds have it (the unfolded
 //         pack's rows are fields; a folded row is not), as the C entries
 //         cloudsc_fused_rows_{f32,f64}; kernels/cuda_cloudsc.py launches it
 //         for a field dict on the card whose rows are contiguous (h_r, ncol)
-//         tensors of the working type (`rows_in_place`).
+//         tensors of the working type (`rows_in_place`), in the build with
+//         CLOUDSC_FN, after zdqs_kernel has written the table's ZDQS row.
 // A warp's copies coalesce alike from either source: every row of both is
 // a run of ncol columns.
 //
@@ -530,25 +532,36 @@ int launch(const T* pack, const T* col, const double* consts, T* o_lev,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The Rows policy's launch: `rows` and `heights` are host arrays of nrows
-// entries, copied into the kernel's parameters. Refuses another row set, a
+// The Rows policy's table from host arrays of nrows row pointers and
+// heights, copied into a kernel's parameters; false for another row set, a
 // height other than nlev or nlev+1, a PAPH without its surface level nlev,
-// and a null source.
+// or a null row.
+template <typename T>
+bool make_rows(const void* const* rows, const int* heights, int nlev,
+               int nrows, Rows<T>& table) {
+  if (nrows != R_COUNT || heights[R_PAPH] != nlev + 1) return false;
+  for (int r = 0; r < R_COUNT; ++r) {
+    if (!rows[r] || heights[r] < nlev || heights[r] > nlev + 1) return false;
+    table.p[r] = static_cast<const T*>(rows[r]);
+    table.h[r] = heights[r];
+  }
+  table.plsm = nullptr;
+  table.ldcum = nullptr;
+  table.ktype = nullptr;
+  return true;
+}
+
+// The Rows policy's launch: `rows` and `heights` as make_rows takes them.
+// Refuses what make_rows refuses and a null per-column row.
 template <typename T>
 int launch_rows(const void* const* rows, const int* heights, const T* plsm,
                 const unsigned char* ldcum, const int* ktype,
                 const double* consts, T* o_lev, T* o_half, T* o_prainfrac,
                 int nlev, int ncol, int nrows, void* stream) {
-  if (nrows != R_COUNT || heights[R_PAPH] != nlev + 1 || !plsm || !ldcum ||
+  Rows<T> table;
+  if (!make_rows(rows, heights, nlev, nrows, table) || !plsm || !ldcum ||
       !ktype)
     return static_cast<int>(cudaErrorInvalidValue);
-  Rows<T> table;
-  for (int r = 0; r < R_COUNT; ++r) {
-    if (!rows[r] || heights[r] < nlev || heights[r] > nlev + 1)
-      return static_cast<int>(cudaErrorInvalidValue);
-    table.p[r] = static_cast<const T*>(rows[r]);
-    table.h[r] = heights[r];
-  }
   table.plsm = plsm;
   table.ldcum = ldcum;
   table.ktype = ktype;
@@ -556,6 +569,63 @@ int launch_rows(const void* const* rows, const int* heights, const T* plsm,
   return launch_fused<T>(nullptr, nullptr, table, consts, o_lev, o_half,
                          o_prainfrac, nlev, ncol, nrows,
                          static_cast<cudaStream_t>(stream));
+}
+
+// -- the ZDQS row of a field dict (no TPU kernel: the TPU kernel reads the
+// row folded on the host in fp64, or runs the in-line CUADJTQ in its
+// sweep). zdqs_kernel hoists K1's section 3.4b forcing chain and in-line
+// CUADJTQ out of the column sweep, where one thread a column runs it as a
+// long dependent chain at 8 (fp64) or 12 (fp32) warps an SM: it reads only
+// level k's inputs (level_zdqs), so here one thread takes one (level,
+// column), columns innermost, at full occupancy, and writes the (nlev,
+// ncol) row that K1's unfolded build with CLOUDSC_FN streams in its ring.
+// The same device functions, operation order and -fmad=false as the
+// in-line chain: the row is the in-line chain's value bit for bit on every
+// level K1 reads (k >= NCLDTOP - 1), and 0 above, where its blocks compute
+// nothing. It reads the dict in place through the Rows table and clamp of
+// K1 (the table's ZDQS entry, its own output, is not read). The constants
+// are a parameter in the working type (ZdqsConsts), read from the
+// parameter bank: no per-block copy to shared memory and no barrier.
+// Bound, at 163,840 columns and NCLDTOP 15: 9 rows read on the 123 levels
+// it computes (PT, TENDENCY_TMP_T, PAP, PAPH, PMFU, PMFD, PVERVEL, PHRSW,
+// PHRLW) and ZDQS written on all 137, 1.63 GB fp64 / 0.82 GB fp32, 0.487 /
+// 0.244 ms at 3.35 TB/s.
+constexpr int ZDQS_BLOCK = 256;
+
+template <typename T> struct ZdqsConsts {
+  T v[C_COUNT];  // the constants vector, rounded to T on the host
+};
+
+template <typename T>
+__global__ void __launch_bounds__(ZDQS_BLOCK)
+zdqs_kernel(const __grid_constant__ ZdqsConsts<T> K, T* __restrict__ o_zdqs,
+            int nlev, int ncol, const __grid_constant__ Rows<T> rows) {
+  const int j = blockIdx.x * ZDQS_BLOCK + threadIdx.x, k = blockIdx.y;
+  if (j >= ncol) return;
+  const size_t n = size_t(ncol);
+  auto P = [&](int lev, int r) -> T {
+    return __ldg(rows.p[r] + size_t(min(lev, rows.h[r] - 1)) * n + j);
+  };
+  o_zdqs[size_t(k) * n + j] = level_zdqs<T>(P, k, nlev, K.v);
+}
+
+// zdqs_kernel's launch: `rows` and `heights` as make_rows takes them (the
+// ZDQS entry may be o_zdqs itself), `consts` the constants vector in host
+// memory; refuses what make_rows refuses.
+template <typename T>
+int launch_zdqs(const void* const* rows, const int* heights,
+                const double* consts, T* o_zdqs, int nlev, int ncol,
+                int nrows, void* stream) {
+  Rows<T> table;
+  if (!make_rows(rows, heights, nlev, nrows, table) || !o_zdqs || !consts)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ncol <= 0 || nlev <= 0) return 0;
+  ZdqsConsts<T> K;
+  for (int i = 0; i < C_COUNT; ++i) K.v[i] = T(consts[i]);
+  const dim3 grid((ncol + ZDQS_BLOCK - 1) / ZDQS_BLOCK, nlev);
+  zdqs_kernel<T><<<grid, ZDQS_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      K, o_zdqs, nlev, ncol, table);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // What fused_kernel<T, Src> runs with on the current device: out[0] blocks
@@ -615,10 +685,11 @@ extern "C" int cloudsc_fused_occupancy_f64(int* out) {
 
 #if !CLOUDSC_FOLD_INPUTS
 // The full body reading a field dict in place (the Rows policy), in the
-// unfolded build only: cloudsc_fused_rows_{f32,f64}(rows, heights, plsm,
-// ldcum, ktype, consts, o_lev, o_half, o_prainfrac, nlev, ncol, nrows,
-// stream) -> cudaError_t of the launch, `rows` (void*[nrows]) and `heights`
-// (int[nrows]) host arrays in the pack's row order; and
+// unfolded builds only (with CLOUDSC_FN the table holds the ZDQS row that
+// cloudsc_zdqs_rows_* wrote): cloudsc_fused_rows_{f32,f64}(rows, heights,
+// plsm, ldcum, ktype, consts, o_lev, o_half, o_prainfrac, nlev, ncol,
+// nrows, stream) -> cudaError_t of the launch, `rows` (void*[nrows]) and
+// `heights` (int[nrows]) host arrays in the pack's row order; and
 // cloudsc_fused_rows_occupancy_{f32,f64}(int out[7]).
 extern "C" int cloudsc_fused_rows_f32(const void* const* rows,
                                       const int* heights, const float* plsm,
@@ -641,6 +712,25 @@ extern "C" int cloudsc_fused_rows_f64(const void* const* rows,
   return cloudsc::launch_rows<double>(rows, heights, plsm, ldcum, ktype,
                                       consts, o_lev, o_half, o_prainfrac,
                                       nlev, ncol, nrows, stream);
+}
+
+// zdqs_kernel: cloudsc_zdqs_rows_{f32,f64}(rows, heights, consts, o_zdqs,
+// nlev, ncol, nrows, stream) -> cudaError_t of the launch, `rows` and
+// `heights` as for cloudsc_fused_rows_*, `consts` (double[C_COUNT]) in host
+// memory.
+extern "C" int cloudsc_zdqs_rows_f32(const void* const* rows,
+                                     const int* heights, const double* consts,
+                                     float* o_zdqs, int nlev, int ncol,
+                                     int nrows, void* stream) {
+  return cloudsc::launch_zdqs<float>(rows, heights, consts, o_zdqs, nlev,
+                                     ncol, nrows, stream);
+}
+extern "C" int cloudsc_zdqs_rows_f64(const void* const* rows,
+                                     const int* heights, const double* consts,
+                                     double* o_zdqs, int nlev, int ncol,
+                                     int nrows, void* stream) {
+  return cloudsc::launch_zdqs<double>(rows, heights, consts, o_zdqs, nlev,
+                                      ncol, nrows, stream);
 }
 
 extern "C" int cloudsc_fused_rows_occupancy_f32(int* out) {

@@ -6,7 +6,9 @@
 // SchemeConfig switches IWARMRAIN, IEVAPRAIN, IEVAPSNOW, IDEPICE and the
 // four aerosol couplings, the pack's form (CLOUDSC_FOLD_INPUTS: the folded
 // pack, or the raw state and tendencies summed here; CLOUDSC_FC, _FN, _FD:
-// the folded pack's streamed saturation-curve, ZDQS and deposition rows),
+// the folded pack's streamed saturation-curve, ZDQS and deposition rows;
+// beside the unfolded rows only the ZDQS row, which cloudsc_fused.cu's
+// zdqs_kernel writes at working precision),
 // the output rows (CLOUDSC_FOLD_OUTPUTS, read by cloudsc_fused.cu), the
 // skipped sections (CLOUDSC_SKIP_<tag>, one macro a tag of
 // scheme.SKIP_TAGS), CLOUDSC_DYNAMIC_SKIPS and CLOUDSC_S521_ROUND_SKIP
@@ -61,9 +63,11 @@
     (CLOUDSC_IDEPICE != 1 && CLOUDSC_IDEPICE != 2)
 #error "each scheme switch is 1 or 2"
 #endif
-// the JAX kernel's gate `fold and fn`: an unfolded pack has no form rows
-#if !CLOUDSC_FOLD_INPUTS && (CLOUDSC_FC || CLOUDSC_FN || CLOUDSC_FD)
-#error "the unfolded pack (CLOUDSC_FOLD_INPUTS=0) streams no FC/FN/FD rows"
+// a folded row has no place beside the unfolded rows; the ZDQS row does:
+// the unfolded build with CLOUDSC_FN streams the row that zdqs_kernel
+// (cloudsc_fused.cu) writes at working precision
+#if !CLOUDSC_FOLD_INPUTS && (CLOUDSC_FC || CLOUDSC_FD)
+#error "the unfolded pack (CLOUDSC_FOLD_INPUTS=0) streams no FC/FD rows"
 #endif
 // the liquid couplings live in the Sundqvist warm-rain branch only
 #define CLOUDSC_AER_LIQ \
@@ -103,9 +107,9 @@ enum Const {
 
 // Rows of the pack, in the order of pack_rows(fc, fn, fd, aer_rows(c),
 // fold_inputs) in kernels/cuda_cloudsc.py: folded, PACK_ROWS and the form's
-// curve, ZDQS and deposition rows; unfolded, UNFOLDED_ROWS; then the
-// aerosol rows the build's couplings read. The rows also read at level
-// k+1 come first. The ring follows R_COUNT.
+// curve, ZDQS and deposition rows; unfolded, UNFOLDED_ROWS and the ZDQS
+// row (fn); then the aerosol rows the build's couplings read. The rows also
+// read at level k+1 come first. The ring follows R_COUNT.
 enum Row {
 #if CLOUDSC_FOLD_INPUTS
   R_PMF, R_PLU, R_PAPH, R_ZTP1_IN, R_ZQV_IN, R_ZA_IN, R_PAP, R_PVERVEL,
@@ -126,6 +130,9 @@ enum Row {
   R_TENDENCY_TMP_Q, R_TENDENCY_TMP_A, R_PA, R_PAP, R_PVERVEL, R_PHRSW,
   R_PHRLW, R_PLUDE, R_PSNDE, R_PSUPSAT, R_PVFL, R_PVFI,
   R_PCLV0, R_PCLV1, R_PCLV2, R_PCLV3, R_TCLD0, R_TCLD1, R_TCLD2, R_TCLD3,
+#if CLOUDSC_FN
+  R_ZDQS,
+#endif
 #endif
 #if CLOUDSC_LAERICESED
   R_PRE_ICE,
@@ -189,6 +196,62 @@ __device__ __forceinline__ T foeewm_a(const T* K, T t, T alfa) {
   return K[C_r2es] *
          (alfa * d_exp(K[C_r3les] * (t - K[C_RTT]) / (t - K[C_R4LES])) +
           (T(1) - alfa) * d_exp(K[C_r3ies] * (t - K[C_RTT]) / (t - K[C_R4IES])));
+}
+
+// the mixed-phase saturation curve of section 1 (ref: 749-760,
+// scheme.sat_mix): its two exponentials, ZFOEEWMT and ZQSMIX at
+// temperature t, liquid fraction alfa and pressure pap
+template <typename T> struct SatMix {
+  T exp_liq, exp_ice, zfoeewmt, zqsmix;
+};
+template <typename T>
+__device__ __forceinline__ SatMix<T> sat_mix(const T* K, T t, T alfa, T pap) {
+  SatMix<T> m;
+  m.exp_liq = d_exp(K[C_r3les] * (t - K[C_RTT]) / (t - K[C_R4LES]));
+  m.exp_ice = d_exp(K[C_r3ies] * (t - K[C_RTT]) / (t - K[C_R4IES]));
+  m.zfoeewmt = mn(K[C_r2es] * (alfa * m.exp_liq + (T(1) - alfa) * m.exp_ice)
+                  / pap, T(0.5));
+  m.zqsmix = m.zfoeewmt / (T(1) - K[C_RETV] * m.zfoeewmt);
+  return m;
+}
+
+// 3.4b's forcing chain and the in-line CUADJTQ, 2 Newton iterations (ref:
+// 1281-1325, scheme.cuadj_zdqs): ZDQS of one level from that level's
+// inputs alone (no cross-level carry; pmf_next counts only where
+// not_last), so it is elementwise over (level, column). level_step calls
+// it in the builds without the streamed ZDQS row, zdqs_kernel
+// (cloudsc_fused.cu, through level_zdqs) for every (level, column) below
+// the cloud top of the dict's build. The Python scalars zrdcp and 0.5 * RG
+// are the constants' zrdcp_half and RG scaled by powers of two, which round
+// alike in either precision.
+template <typename T>
+__device__ __forceinline__ T cuadj_zdqs(const T* K, T ztp1, T pap, T zdp,
+                                        T pmf, T pmf_next, bool not_last,
+                                        T pvervel, T zhr, T zqsmix) {
+  const T O = T(1);
+  const T zqtmst = K[C_zqtmst], ptsphy = K[C_ptsphy], RETV = K[C_RETV];
+  const T zdtdp = T(2) * K[C_zrdcp_half] * ztp1 / pap;
+  const T zdpmxdt = zdp * zqtmst;
+  const T zmfdn2 = not_last ? pmf_next : T(0);
+  T zwtot = pvervel + (T(0.5) * K[C_RG]) * (pmf + zmfdn2);
+  zwtot = mn(zdpmxdt, mx(-zdpmxdt, zwtot));
+  const T zdtdiab = mn(zdpmxdt * zdtdp, mx(-zdpmxdt * zdtdp, zhr)) * ptsphy;
+  const T zdtforc = zdtdp * zwtot * ptsphy + zdtdiab;
+  T tloc = mx(ztp1 + zdtforc, T(160.0));
+  T qloc = zqsmix;
+  const T zqp = O / pap;
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const T alfa_n = foealfa(K, tloc);
+    T zqsat = mn(foeewm_a(K, tloc, alfa_n) * zqp, T(0.5));
+    const T zcor_n = O / (O - RETV * zqsat);
+    zqsat = zqsat * zcor_n;
+    const T zcond = (qloc - zqsat) /
+                    (O + zqsat * zcor_n * foedem_a(K, tloc, alfa_n));
+    tloc = tloc + foeldcpm_a(K, alfa_n) * zcond;
+    qloc = qloc - zcond;
+  }
+  return qloc - zqsmix;
 }
 
 // -- section 1: level init (scheme.level_init on the state of state_rows) ---
@@ -261,13 +324,11 @@ __device__ __forceinline__ void level_init(const T* K, T ztp1_in, T zqv_in,
   o.zfoeeice = curves[8];
 #else
   (void)curves;
-  const T exp_liq = d_exp(K[C_r3les] * (t - K[C_RTT]) / (t - K[C_R4LES]));
-  const T exp_ice = d_exp(K[C_r3ies] * (t - K[C_RTT]) / (t - K[C_R4IES]));
-  o.zfoeeliq = K[C_r2es] * exp_liq;
-  o.zfoeeice = K[C_r2es] * exp_ice;
-  o.zfoeewmt = mn(K[C_r2es] * (o.zfoealfa * exp_liq + (O - o.zfoealfa) * exp_ice)
-                  / pap, T(0.5));
-  o.zqsmix = o.zfoeewmt / (O - RETV * o.zfoeewmt);
+  const SatMix<T> sm = sat_mix(K, t, o.zfoealfa, pap);
+  o.zfoeeliq = K[C_r2es] * sm.exp_liq;
+  o.zfoeeice = K[C_r2es] * sm.exp_ice;
+  o.zfoeewmt = sm.zfoeewmt;
+  o.zqsmix = sm.zqsmix;
   const T zdelta = t >= K[C_RTT] ? O : Z;
   T zfoeew = mn((zdelta * o.zfoeeliq + (O - zdelta) * o.zfoeeice) / pap, T(0.5));
   o.zfoeew = mn(T(0.5), zfoeew);
@@ -312,6 +373,18 @@ template <typename T> struct Ys {
   T zqxn[NCLV], plude, pcovptot, tend_t, tend_q, tend_a;
 };
 
+// ZTP1 of level k through `P(lev, row)`: the folded row, or PT + PTSPHY *
+// TENDENCY_TMP_T formed here at working precision
+template <typename T, typename Rows>
+__device__ __forceinline__ T ztp1_row(const Rows& P, int k, const T* K) {
+#if CLOUDSC_FOLD_INPUTS
+  (void)K;
+  return P(k, R_ZTP1_IN);
+#else
+  return P(k, R_PT) + K[C_ptsphy] * P(k, R_TENDENCY_TMP_T);
+#endif
+}
+
 // section 1's state inputs of level k through `P(lev, row)`: the folded
 // rows, or x + PTSPHY*tend formed here at working precision, in
 // scheme.level_init's order
@@ -319,16 +392,14 @@ template <typename T, typename Rows>
 __device__ __forceinline__ void state_rows(const Rows& P, int k, const T* K,
                                            T& ztp1, T& zqv, T& za,
                                            T (&zqx)[4]) {
+  ztp1 = ztp1_row<T>(P, k, K);
 #if CLOUDSC_FOLD_INPUTS
-  (void)K;
-  ztp1 = P(k, R_ZTP1_IN);
   zqv = P(k, R_ZQV_IN);
   za = P(k, R_ZA_IN);
 #pragma unroll
   for (int m = 0; m < 4; ++m) zqx[m] = P(k, R_ZQX0_IN + m);
 #else
   const T dt = K[C_ptsphy];
-  ztp1 = P(k, R_PT) + dt * P(k, R_TENDENCY_TMP_T);
   zqv = P(k, R_PQ) + dt * P(k, R_TENDENCY_TMP_Q);
 #pragma unroll
   for (int m = 0; m < 4; ++m) zqx[m] = P(k, R_PCLV0 + m) + dt * P(k, R_TCLD0 + m);
@@ -346,6 +417,17 @@ __device__ __forceinline__ T pmf_row(const Rows& P, int lev) {
 #endif
 }
 
+// PHRSW+PHRLW of level `lev`: the folded row, or the sum at working
+// precision
+template <typename T, typename Rows>
+__device__ __forceinline__ T zhr_row(const Rows& P, int lev) {
+#if CLOUDSC_FOLD_INPUTS
+  return P(lev, R_ZHR);
+#else
+  return P(lev, R_PHRSW) + P(lev, R_PHRLW);
+#endif
+}
+
 // the streamed rows of level_step's inputs, through `P(lev, row)`: level k's
 // and the k+1 rows pmf (or pmfu and pmfd) and plu
 template <typename T, typename Rows>
@@ -355,11 +437,7 @@ __device__ __forceinline__ void level_rows(const Rows& P, int k,
   x.pmf_next = pmf_row<T>(P, k + 1);
   x.plu_next = P(k + 1, R_PLU);
   x.pvervel = P(k, R_PVERVEL);
-#if CLOUDSC_FOLD_INPUTS
-  x.zhr = P(k, R_ZHR);
-#else
-  x.zhr = P(k, R_PHRSW) + P(k, R_PHRLW);
-#endif
+  x.zhr = zhr_row<T>(P, k);
   x.psnde = P(k, R_PSNDE);
   x.psupsat = P(k, R_PSUPSAT);
 #if CLOUDSC_FN
@@ -380,6 +458,28 @@ __device__ __forceinline__ void level_rows(const Rows& P, int k,
   x.plcrit_aer = P(k, R_PLCRIT_AER);
   x.pccn = P(k, R_PCCN);
 #endif
+}
+
+// ZDQS of level k of `nlev` through `P(lev, row)`, from that level's rows
+// alone, as K1's level loop forms each input of cuadj_zdqs: ZTP1 and ZQSMIX
+// as section 1 forms them (the fc form's ZQSMIX row), PAPH's difference,
+// PMF of levels k and k+1 (the k+1 one masked at the last level), PVERVEL
+// and ZHR. Above the cloud top (k < NCLDTOP - 1), where K1 reads none, it
+// is 0 and nothing is computed.
+template <typename T, typename Rows>
+__device__ __forceinline__ T level_zdqs(const Rows& P, int k, int nlev,
+                                        const T* K) {
+  if (k < int(K[C_NCLDTOP]) - 1) return T(0);
+  const T ztp1 = ztp1_row<T>(P, k, K);
+  const T pap = P(k, R_PAP);
+#if CLOUDSC_FC
+  const T zqsmix = P(k, R_ZQSMIX);
+#else
+  const T zqsmix = sat_mix(K, ztp1, foealfa(K, ztp1), pap).zqsmix;
+#endif
+  return cuadj_zdqs(K, ztp1, pap, P(k + 1, R_PAPH) - P(k, R_PAPH),
+                    pmf_row<T>(P, k), pmf_row<T>(P, k + 1), k < nlev - 1,
+                    P(k, R_PVERVEL), zhr_row<T>(P, k), zqsmix);
 }
 
 // the fc form's nine curve rows of level k, through `P(lev, row)`
@@ -586,39 +686,12 @@ __device__ __forceinline__ void level_step(const T* K, int nssopt,
 
   // ---- 3.4b condensation/evaporation from dqsat/dt (ref: 1281-1325) ----
 #if CLOUDSC_FN
-  // the CUADJTQ result, folded at load time (physics/satfold.newton_zdqs)
+  // the streamed row: folded at load time in fp64 (physics/satfold.
+  // newton_zdqs), or, beside the unfolded rows, zdqs_kernel's cuadj_zdqs
   const T zdqs = x.zdqs;
 #else
-  // the forcing chain and the in-line CUADJTQ, 2 Newton iterations (ref:
-  // 1303-1319). The Python scalars zrdcp and 0.5 * RG are the constants'
-  // zrdcp_half and RG scaled by powers of two, which round alike in
-  // either precision.
-  T zdqs;
-  {
-    const T zdtdp = T(2) * K[C_zrdcp_half] * ztp1 / pap;
-    const T zdpmxdt = zdp * zqtmst;
-    const T zmfdn2 = not_last ? x.pmf_next : Z;
-    T zwtot = x.pvervel + (T(0.5) * RG) * (x.pmf + zmfdn2);
-    zwtot = mn(zdpmxdt, mx(-zdpmxdt, zwtot));
-    const T zdtdiab =
-        mn(zdpmxdt * zdtdp, mx(-zdpmxdt * zdtdp, x.zhr)) * ptsphy;
-    const T zdtforc = zdtdp * zwtot * ptsphy + zdtdiab;
-    T tloc = mx(ztp1 + zdtforc, T(160.0));
-    T qloc = zqsmix;
-    const T zqp = O / pap;
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const T alfa_n = foealfa(K, tloc);
-      T zqsat = mn(foeewm_a(K, tloc, alfa_n) * zqp, T(0.5));
-      const T zcor_n = O / (O - RETV * zqsat);
-      zqsat = zqsat * zcor_n;
-      const T zcond = (qloc - zqsat) /
-                      (O + zqsat * zcor_n * foedem_a(K, tloc, alfa_n));
-      tloc = tloc + foeldcpm_a(K, alfa_n) * zcond;
-      qloc = qloc - zcond;
-    }
-    zdqs = qloc - zqsmix;
-  }
+  const T zdqs = cuadj_zdqs(K, ztp1, pap, zdp, x.pmf, x.pmf_next, not_last,
+                            x.pvervel, x.zhr, zqsmix);
 #endif
 
   // 3.4a evaporation of clouds (ref: 1333-1356)

@@ -56,6 +56,11 @@ ENTRY_POINTS = {
     **{f"cloudsc_fused_rows_{t}": [_vp] * 9 + [_i] * 3 + [_vp]
        for t in ("f32", "f64")},
     **{f"cloudsc_fused_rows_occupancy_{t}": [_vp] for t in ("f32", "f64")},
+    # the ZDQS row of a field dict (the unfolded builds' only): the host
+    # arrays of row pointers and heights, consts (in host memory), the row,
+    # nlev, ncol, nrows, stream
+    **{f"cloudsc_zdqs_rows_{t}": [_vp] * 4 + [_i] * 3 + [_vp]
+       for t in ("f32", "f64")},
     "overlap_probe": [_vp] * 5 + [_i] * 7 + [_vp],
     "copy_probe": [_vp] * 4 + [_i, _i, _ll, _i, _ll, _ll, _i, _vp],
     # (int out[9]): K3's geometry and occupancy on the current device
@@ -69,10 +74,12 @@ ENTRY_POINTS = {
 # sources that build only alone, into a library of their own, and the entry
 # points they hold, which the default library lacks
 ALONE = {"foldo.cu": ("cloudsc_foldo_f32", "cloudsc_foldo_f64")}
-# the entry points only the unfolded build of K1 holds
-# (`KernelVersion.fold_inputs` False): the Rows policy reads the fields
+# the entry points only the unfolded builds of K1 hold
+# (`KernelVersion.fold_inputs` False): the Rows policy and zdqs_kernel read
+# the fields
 UNFOLDED_ONLY = tuple(n for n in ENTRY_POINTS
-                      if n.startswith("cloudsc_fused_rows_"))
+                      if n.startswith(("cloudsc_fused_rows_",
+                                       "cloudsc_zdqs_rows_")))
 
 # loaded libraries by (geometry, sources, scheme version); (None, None,
 # None) is the default build

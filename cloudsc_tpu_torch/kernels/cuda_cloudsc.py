@@ -31,7 +31,12 @@ min(lev, h_r - 1) — the clamp gives at level nlev the values of the pack's
 edge-replicated row — and PLSM, LDCUM and KTYPE in their own dtypes. A
 dict must be laid out so (`rows_in_place`: contiguous `(h, ncol)` rows of
 the working dtype on one device, the flags bool and int32); any other
-raises, naming the row. Nothing repacks it.
+raises, naming the row. Nothing repacks it. A dict's build (`ROWS_FORM`)
+streams one more row beside the fields, ZDQS: a prologue kernel of the
+same library (`zdqs_kernel`, `zdqs_row`) writes it for every (level,
+column) below the cloud top at working precision (0 above, where K1 reads
+none), bit for bit the in-line CUADJTQ that the column sweep would
+otherwise run at its low occupancy; its plain version is `zdqs_plain`.
 
 `cloudsc_fused` is K1's one entry, for a pack or a dict: on the card it
 launches the policy of its input (or raises), through one launcher
@@ -42,10 +47,11 @@ row table with the kernel's clamp. Its `mode` also selects the TPU
 kernel's two diagnostic bodies on a pack (`floor`, `init`: the same I/O
 with degenerate or section-1 compute, for the measurement lab), with plain
 versions `cloudsc_floor_plain` / `cloudsc_init_plain`. The launches are
-counted in `runtime.tracing`: `ops.k1` the full body's (the step's K1),
-`launches.k1.floor` and `launches.k1.init` the diagnostic bodies',
-`launches.k1.version` the full body's by build (keyed by `KernelVersion`),
-`launches.k1.in_place` the full body's on a dict.
+counted in `runtime.tracing`: `ops.k1` the full body's and zdqs_kernel's
+(the step's K1 layer: 2 on a dict), `launches.k1.floor` and
+`launches.k1.init` the diagnostic bodies', `launches.k1.version` the full
+body's by build (keyed by `KernelVersion`), `launches.k1.in_place` the full
+body's on a dict, `launches.zdqs` zdqs_kernel's.
 
 The step records its layers there too: `FusedStep.forward` is the span
 `cloudsc.step`, around `cloudsc.k1` (the one `cloudsc_fused` call: a
@@ -233,9 +239,10 @@ class KernelVersion:
     aerosol couplings, the pack's form (`fc`, `fn`, `fd`: its optional
     rows), the skipped sections (`skip`, a frozenset of scheme.SKIP_TAGS),
     `dynamic_skips`, `s521_round_skip`, the input contract (`fold_inputs`:
-    the folded pack, or the unfolded one, which streams no optional row)
-    and the output rows (`fold_outputs`: the four derivable flux rows left
-    to `assemble`, or written by the kernel). kernels/build.py passes it to
+    the folded pack, or the unfolded one, which streams no folded row and
+    may stream the ZDQS row: a field dict's build) and the output rows
+    (`fold_outputs`: the four derivable flux rows left to `assemble`, or
+    written by the kernel). kernels/build.py passes it to
     csrc/cloudsc_scheme.cuh as the CLOUDSC_* macros (one a skip tag), one
     library a version. The liquid couplings act only under IWARMRAIN=1, so
     `kernel_version` drops them elsewhere and such a configuration shares
@@ -259,11 +266,10 @@ class KernelVersion:
     fold_outputs: bool = True
 
     def __post_init__(self):
-        if not self.fold_inputs and (self.fc or self.fn or self.fd):
+        if not self.fold_inputs and (self.fc or self.fd):
             raise ValueError(
-                "the unfolded pack streams no optional row: fold_inputs="
-                "False needs fc = fn = fd = False (the JAX kernel's gate "
-                "is `fold and fn`)")
+                "the unfolded pack streams no folded row: fold_inputs="
+                "False needs fc = fd = False")
 
     def macros(self) -> tuple:
         out = []
@@ -385,8 +391,9 @@ class FoldedPack:
     """The input pack with its own layout: `pack (nlev+1, nrows, ncol)`,
     `col (4, ncol)`, the row names and its form: folded (`fold_inputs`) or
     the unfolded rows (UNFOLDED_ROWS), and whether it streams the
-    saturation-curve rows (`fc`), the ZDQS row (`fn`) and the deposition
-    rows (`fd`), which only a folded pack does."""
+    saturation-curve rows (`fc`) and the deposition rows (`fd`), which only
+    a folded pack does, and the ZDQS row (`fn`: folded in fp64, or beside
+    the unfolded rows at working precision, `zdqs_plain`)."""
 
     pack: torch.Tensor
     col: torch.Tensor
@@ -397,8 +404,8 @@ class FoldedPack:
     fold_inputs: bool = True
 
     def __post_init__(self):
-        if not self.fold_inputs and (self.fc or self.fn or self.fd):
-            raise ValueError("an unfolded pack streams no optional row")
+        if not self.fold_inputs and (self.fc or self.fd):
+            raise ValueError("an unfolded pack streams no folded row")
 
     @property
     def form(self) -> dict:
@@ -425,13 +432,13 @@ def pack_rows(fc: bool = False, fn: bool = True, fd: bool = False,
               aer=(), fold_inputs: bool = True) -> tuple:
     """The pack's rows: folded, in pallas_cloudsc._pack_rows_f's order
     (PACK_ROWS, the curve rows (fc), ZDQS (fn), the deposition rows (fd));
-    unfolded, UNFOLDED_ROWS (no optional row: fc = fn = fd = False); then
-    `aer`."""
+    unfolded, UNFOLDED_ROWS and ZDQS (fn; no folded row: fc = fd = False);
+    then `aer`."""
     if not fold_inputs:
-        if fc or fn or fd:
-            raise ValueError("the unfolded pack streams no optional row: "
-                             "fc = fn = fd = False")
-        return UNFOLDED_ROWS + tuple(aer)
+        if fc or fd:
+            raise ValueError("the unfolded pack streams no folded row: "
+                             "fc = fd = False")
+        return UNFOLDED_ROWS + ((ZDQS_ROW,) if fn else ()) + tuple(aer)
     return PACK_ROWS + (CURVE_ROWS if fc else ()) \
         + ((ZDQS_ROW,) if fn else ()) + (DEP_ROWS if fd else ()) + tuple(aer)
 
@@ -600,11 +607,14 @@ def pack_inputs_raw(inp, params, config=None, dtype=torch.float32,
                     fn: bool = True, fd: bool = False) -> FoldedPack:
     """The host pack of form ({fold_inputs, fc, fn, fd}, `fold_flags`):
     `pack_inputs_folded`, or `pack_inputs_unfolded` without fold_inputs
-    (where fc, fn and fd must be off)."""
+    (where fc, fn and fd must be off: the host's unfolded pack streams no
+    optional row)."""
     if fold_inputs:
         return pack_inputs_folded(inp, params, config, dtype, perm, fn,
                                   column_order, fc, fd)
-    pack_rows(fc, fn, fd, fold_inputs=False)  # refuses the form rows
+    if fc or fn or fd:
+        raise ValueError("the host's unfolded pack streams no optional row: "
+                         "fc = fn = fd = False")
     return pack_inputs_unfolded(inp, params, config, dtype, perm,
                                 column_order)
 
@@ -742,8 +752,9 @@ def refuse_grad(*tensors) -> None:
 # the in-place input's per-column rows and their dtypes (None: the working
 # dtype); the surface pressure is PAPH's level nlev
 FLAG_DTYPES = (("plsm", None), ("ldcum", torch.bool), ("ktype", torch.int32))
-# the form of the build that reads a field dict: the unfolded rows
-UNFOLDED_FORM = {"fold_inputs": False, "fc": False, "fn": False, "fd": False}
+# the form of the build that reads a field dict: the unfolded rows and the
+# ZDQS row, which zdqs_kernel writes from them at working precision
+ROWS_FORM = {"fold_inputs": False, "fc": False, "fn": True, "fd": False}
 
 
 def row_table(fields: dict, c) -> list:
@@ -808,22 +819,82 @@ def rows_in_place(fields: dict, c) -> bool:
     return True
 
 
+def _table_args(table: list, zdqs: torch.Tensor, c) -> tuple:
+    """The Rows table of the dict's build (ROWS_FORM) for the C entries:
+    host arrays of the row pointers and heights in its row order, the
+    dict's rows (`row_table`) with the ZDQS row `zdqs` in its place."""
+    rows = dict(table, **{ZDQS_ROW: zdqs})
+    names = pack_rows(fn=True, aer=aer_rows(c), fold_inputs=False)
+    n = len(names)
+    return ((ctypes.c_void_p * n)(*(rows[m].data_ptr() for m in names)),
+            (ctypes.c_int * n)(*(rows[m].shape[0] for m in names)))
+
+
+def zdqs_row(fields: dict, c) -> torch.Tensor:
+    """The ZDQS row `(nlev, ncol)` of a field dict that `rows_in_place`
+    takes: section 3.4b's forcing chain and in-line CUADJTQ at working
+    precision for every (level, column) K1 reads (k >= NCLDTOP - 1; 0
+    above), what K1's Rows policy streams. On the card one launch of
+    csrc/cloudsc_fused.cu's zdqs_kernel, reading the dict in place, from
+    the library `cloudsc_fused` runs on the dict by default
+    (`_zdqs_launch`); on the CPU `zdqs_plain`. A dict `rows_in_place`
+    refuses raises ValueError naming the row."""
+    table = _in_place_table(fields, c)
+    like = fields["pt"]
+    if like.device.type == "cpu":
+        return zdqs_plain(fields, c)
+    check_kernel_config(c)
+    from . import build
+
+    lib = build.load_library(version=kernel_version(c, ROWS_FORM))
+    return _zdqs_launch(table, like, c, lib)[0]
+
+
+def _zdqs_launch(table: list, like: torch.Tensor, c, lib) -> tuple:
+    """zdqs_kernel's launch on the current stream of `like`'s card, from
+    `lib`, for the dict whose checked row table is `table`, with the
+    constants of `c` in host memory (the kernel takes them as a
+    parameter): (the ZDQS row, a new `like`-shaped tensor; the Rows table's
+    C arrays with that row in place, which K1's launch takes). Counted in
+    `launches.zdqs` and `ops.k1` (the row is K1's input, issued in its
+    layer); raises on a launch error. Nothing here waits for the card: the
+    constants go by value, not by a copy to the device."""
+    zdqs = like.new_empty(like.shape)
+    args = _table_args(table, zdqs, c)
+    t = "f32" if like.dtype == torch.float32 else "f64"
+    name = f"cloudsc_zdqs_rows_{t}"
+    host = const_vector(c)
+    with torch.cuda.device(like.device):
+        rc = getattr(lib, name)(*args, host.data_ptr(), zdqs.data_ptr(),
+                                *like.shape, len(args[0]),
+                                torch.cuda.current_stream().cuda_stream)
+    tracing.count("ops.k1")
+    tracing.count("launches.zdqs")
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return zdqs, args
+
+
 def cloudsc_fused(x, c, consts: torch.Tensor | None = None,
                   mode: str = "full", lib=None, fold_outputs: bool = True):
     """One CLOUDSC step on a pack or a plain field dict -> (o_lev (nlev, 9,
     ncol), o_half (nlev+1, 10 or 14 (`ohalf_rows(fold_outputs)`), ncol),
     o_prainfrac (ncol,)) on its device. A `FoldedPack` on the card launches
     the Pack policy; `mode` "floor" or "init" runs the diagnostic body
-    instead of the physics. A field dict is read in place, with no pack:
-    on the card the unfolded build's Rows policy (a table of the rows'
-    base pointers and heights in the kernel's parameters, the flags in
-    their own dtypes; counted in `launches.k1.in_place`), the full body
-    only; a dict `rows_in_place` refuses raises ValueError naming the row,
-    on either device. On the CPU the plain version runs, on the pack or
-    through the dict's row table. `lib` is a library from
-    `build.load_library` (if None, the build of `c`'s configuration on the
-    input's form and the output rows, `kernel_version`). An input that
-    requires grad is refused on either device (`refuse_grad`)."""
+    instead of the physics. A field dict is read in place, with no pack,
+    by the build of ROWS_FORM: on the card zdqs_kernel writes the dict's
+    ZDQS row (`zdqs_row`), then the Rows policy (a table of the rows' base
+    pointers and heights in the kernel's parameters, the ZDQS row's among
+    them, the flags in their own dtypes; counted in
+    `launches.k1.in_place`) streams it in place of the in-line CUADJTQ, two
+    launches on the current stream with no sync; the full body only; a
+    dict `rows_in_place` refuses raises ValueError naming the row, on
+    either device. On the CPU the plain version runs, on the pack or
+    through the dict's row table and `zdqs_plain`'s row. `lib` is a
+    library from `build.load_library` (if None, the build of `c`'s
+    configuration on the input's form and the output rows,
+    `kernel_version`). An input that requires grad is refused on either
+    device (`refuse_grad`)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
     if isinstance(x, FoldedPack):
@@ -848,12 +919,31 @@ def cloudsc_fused(x, c, consts: torch.Tensor | None = None,
                        (x.nlev, x.ncol, len(x.rows)), c, consts, lib, mode,
                        fold_outputs)
     check_kernel_config(c)
-    n = len(table)
-    ptrs = ((ctypes.c_void_p * n)(*(t.data_ptr() for _, t in table)),
-            (ctypes.c_int * n)(*(t.shape[0] for _, t in table)),
-            *(x[name].data_ptr() for name, _ in FLAG_DTYPES))
-    return _launch("cloudsc_fused_rows", UNFOLDED_FORM, like, ptrs,
-                   (*like.shape, n), c, consts, lib, mode, fold_outputs)
+    lib, consts = _lib_consts(kernel_version(c, ROWS_FORM, fold_outputs), c,
+                              consts, lib, like)
+    # the row lives until K1, which reads it, is enqueued on its stream
+    zdqs, args = _zdqs_launch(table, like, c, lib)
+    ptrs = (*args, *(x[name].data_ptr() for name, _ in FLAG_DTYPES))
+    return _launch("cloudsc_fused_rows", ROWS_FORM, like, ptrs,
+                   (*like.shape, len(args[0])), c, consts, lib, mode,
+                   fold_outputs)
+
+
+def _lib_consts(version: KernelVersion, c, consts, lib, like):
+    """(the library, the constants vector) of a launch: `lib`, or the build
+    of `version`; `consts`, or `const_vector(c)` on `like`'s device, which
+    it must be."""
+    if lib is None:
+        from . import build
+
+        lib = build.load_library(version=version)
+    if consts is None:
+        consts = const_vector(c, like.device)
+    if consts.dtype != torch.float64 or consts.device != like.device \
+            or consts.numel() != len(CONST_NAMES):
+        raise ValueError("consts must be const_vector(c) on the inputs' "
+                         "device")
+    return lib, consts
 
 
 def _launch(entry: str, form: dict, like: torch.Tensor, ptrs: tuple,
@@ -865,16 +955,7 @@ def _launch(entry: str, form: dict, like: torch.Tensor, ptrs: tuple,
     stream of `like`'s card with the input pointers `ptrs` and `dims`
     (nlev, ncol, nrows), the counts, and the launch's error."""
     version = kernel_version(c, form, fold_outputs)
-    if lib is None:
-        from . import build
-
-        lib = build.load_library(version=version)
-    if consts is None:
-        consts = const_vector(c, like.device)
-    if consts.dtype != torch.float64 or consts.device != like.device \
-            or consts.numel() != len(CONST_NAMES):
-        raise ValueError("consts must be const_vector(c) on the inputs' "
-                         "device")
+    lib, consts = _lib_consts(version, c, consts, lib, like)
     nlev, ncol, nrows = dims
     o_lev = like.new_empty((nlev, len(OLEV_ROWS), ncol))
     o_half = like.new_empty((nlev + 1, len(ohalf_rows(fold_outputs)), ncol))
@@ -907,7 +988,8 @@ def occupancy(dtype, lib=None, rows: bool = False) -> dict:
     at its block and dynamic shared memory), the dynamic shared memory
     bytes a block, its ring geometry, and the registers and local-memory
     bytes a thread (cudaFuncGetAttributes); of the Pack policy, or with
-    `rows` of the Rows policy (an unfolded build's). Needs a card."""
+    `rows` of the Rows policy (an unfolded build's: a field dict runs
+    `kernel_version(c, ROWS_FORM)`'s). Needs a card."""
     if lib is None:
         from . import build
 
@@ -945,16 +1027,47 @@ def _pmf(get, form: dict):
     return get("pmf") if form["fold_inputs"] else get("pmfu") + get("pmfd")
 
 
+def zdqs_plain(fields: dict, c) -> torch.Tensor:
+    """The plain version of zdqs_kernel (`zdqs_row`) on a field dict that
+    `rows_in_place` takes: level by level on `(ncol,)` rows read through its
+    `row_table` with the kernel's clamp, each input of
+    `scheme.cuadj_zdqs` formed as the plain K1 forms it (`level_init`'s
+    ZTP1 and `sat_mix`, the level loop's PAPH difference and PMFU+PMFD of
+    levels k and k+1): term for term `scheme.level_step`'s in-line chain,
+    on every level K1 reads (k >= NCLDTOP - 1), and 0 above. Runs on the
+    dict's device."""
+    rows = dict(row_table(fields, c))
+    pt = fields["pt"]
+    nlev = pt.shape[0]
+
+    def P(k, name):
+        t = rows[name]
+        return t[min(k, t.shape[0] - 1)]
+
+    out = torch.zeros_like(pt)
+    for k in range(c.NCLDTOP - 1, nlev):
+        ztp1 = P(k, "pt") + c.ptsphy * P(k, "tendency_tmp_t")
+        pap = P(k, "pap")
+        zqsmix = scheme.sat_mix(ztp1, scheme.foealfa(ztp1, c.thf), pap, c)[3]
+        out[k] = scheme.cuadj_zdqs(
+            ztp1, pap, P(k + 1, "paph") - P(k, "paph"),
+            P(k, "pmfu") + P(k, "pmfd"), P(k + 1, "pmfu") + P(k + 1, "pmfd"),
+            torch.tensor(k < nlev - 1, device=pt.device), P(k, "pvervel"),
+            P(k, "phrsw") + P(k, "phrlw"), zqsmix, c)
+    return out
+
+
 def cloudsc_fused_plain(x, c, fold_outputs: bool = True):
     """The plain PyTorch version of the kernel: the level loop of the Pallas
     `_kernel` / `_sub_level` / `_write_level_rows` (pallas_cloudsc.py:474-742)
     over `(ncol,)` rows, calling `scheme.level_init` / `level_step`, on a
     folded or an unfolded pack, or on a plain field dict that
     `rows_in_place` takes, read as the Rows policy reads it: through its
-    `row_table`, row r of level lev at level min(lev, h_r - 1), PLSM,
-    LDCUM and KTYPE in their own dtypes. Without `fold_outputs` it also
-    writes the four derivable flux rows (PFSQLTUR/ITUR as running sums,
-    PFHPSL/N from PFPLSL/N). Runs on whatever device the input is on."""
+    `row_table` and the ZDQS row `zdqs_plain` makes of it, row r of level
+    lev at level min(lev, h_r - 1), PLSM, LDCUM and KTYPE in their own
+    dtypes. Without `fold_outputs` it also writes the four derivable flux
+    rows (PFSQLTUR/ITUR as running sums, PFHPSL/N from PFPLSL/N). Runs on
+    whatever device the input is on."""
     if isinstance(x, FoldedPack):
         like, nlev, form = x.pack, x.nlev, x.form
         ridx = {name: i for i, name in enumerate(x.rows)}
@@ -966,9 +1079,9 @@ def cloudsc_fused_plain(x, c, fold_outputs: bool = True):
         plsm, ldcum, ktype, paph_surf = x.col[0], x.col[1] > 0.5, \
             x.col[2].to(torch.int32), x.col[3]
     else:
-        like, form, aer = x["pt"], UNFOLDED_FORM, aer_rows(c)
+        like, form, aer = x["pt"], ROWS_FORM, aer_rows(c)
         nlev = like.shape[0]
-        rows = dict(row_table(x, c))
+        rows = dict(row_table(x, c), **{ZDQS_ROW: zdqs_plain(x, c)})
 
         def P(k, name):
             t = rows[name]
@@ -1349,9 +1462,10 @@ def cloudsc_fused_fields(fields: dict, params, ptsphy, config=None,
     """The per-field entry (pallas_cloudsc.cloudsc_pallas on a field dict):
     one step over a plain `make_inputs` field dict, on the fields' device —
     the `physics.cloudsc` contract, through `FusedStep`: the dict read in
-    place (`cloudsc_fused`: on the card the unfolded build's Rows policy,
-    on the CPU the plain version through its row table), with no pack; a
-    dict `rows_in_place` refuses raises.
+    place (`cloudsc_fused`: on the card zdqs_kernel, then the Rows policy
+    of the dict's build, `ROWS_FORM`; on the CPU the plain version through
+    its row table and `zdqs_plain`), with no pack; a dict `rows_in_place`
+    refuses raises.
     `fold_outputs` (default: CLOUDSC_FOLD_OUTPUTS) leaves the four
     derivable flux rows to `assemble`."""
     fo = fold_outputs_flag() if fold_outputs is None else fold_outputs

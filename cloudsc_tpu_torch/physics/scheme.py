@@ -227,6 +227,55 @@ def derived_consts(params, ptsphy, dtype,
     return c
 
 
+def sat_mix(ztp1, zfoealfa, pap, c):
+    """Section 1's mixed-phase saturation curve (ref: 749-760): its two
+    exponentials, ZFOEEWMT and ZQSMIX at temperature ztp1, liquid fraction
+    zfoealfa and pressure pap, elementwise."""
+    cst, thf = c.cst, c.thf
+    exp_liq = torch.exp(thf.r3les * (ztp1 - cst.rtt) / (ztp1 - thf.r4les))
+    exp_ice = torch.exp(thf.r3ies * (ztp1 - cst.rtt) / (ztp1 - thf.r4ies))
+    zfoeewmt = mn(
+        thf.r2es * (zfoealfa * exp_liq + (1.0 - zfoealfa) * exp_ice)
+        / pap, 0.5
+    )
+    zqsmix = zfoeewmt / (1.0 - c.RETV * zfoeewmt)
+    return exp_liq, exp_ice, zfoeewmt, zqsmix
+
+
+def cuadj_zdqs(ztp1, pap, zdp, pmf, pmf_next, not_last, pvervel, zhr,
+               zqsmix, c):
+    """3.4b's forcing chain and the in-line CUADJTQ, 2 Newton iterations
+    (ref: 1281-1325): ZDQS of one level from that level's inputs alone —
+    ZTP1, PAP, PAPH's difference zdp, PMFU+PMFD of the level and of the one
+    below (masked by `not_last`), PVERVEL, PHRSW+PHRLW and ZQSMIX — with no
+    cross-level carry, so elementwise over levels and columns."""
+    cst, thf = c.cst, c.thf
+    ptsphy, RETV = c.ptsphy, c.RETV
+    zdtdp = c.zrdcp * ztp1 / pap
+    zdpmxdt = zdp * c.zqtmst
+    zmfdn2 = madd(not_last, pmf_next)
+    zwtot = pvervel + 0.5 * c.RG * (pmf + zmfdn2)
+    zwtot = mn(zdpmxdt, mx(-zdpmxdt, zwtot))
+    zzzdt = zhr  # PHRSW + PHRLW (ref: 1289)
+    zdtdiab = mn(zdpmxdt * zdtdp, mx(-zdpmxdt * zdtdp, zzzdt)) * ptsphy
+    zdtforc = zdtdp * zwtot * ptsphy + zdtdiab
+    tloc = mx(ztp1 + zdtforc, 160.0)
+    qloc = zqsmix
+    zqp = 1.0 / pap
+    # inlined CUADJTQ, 2 Newton iterations (ref: 1303-1319)
+    for _ in range(2):
+        alfa_n = foealfa(tloc, thf)
+        zqsat = mn(foeewm_a(tloc, alfa_n, cst, thf) * zqp, 0.5)
+        zcor_n = 1.0 / (1.0 - RETV * zqsat)
+        zqsat = zqsat * zcor_n
+        zcond = (qloc - zqsat) / (
+            1.0 + zqsat * zcor_n * foedem_a(tloc, alfa_n, thf)
+        )
+        tloc = tloc + foeldcpm_a(alfa_n, thf) * zcond
+        qloc = qloc - zcond
+    return qloc - zqsmix
+
+
 def level_init(raw: dict, c) -> dict:
     """Section 1 'initial values' (ref: 654-808), elementwise over any shape.
 
@@ -295,15 +344,9 @@ def level_init(raw: dict, c) -> dict:
         zfoeeliqt, zqsliq = raw["zfoeeliqt"], raw["zqsliq"]
         zfokoop = raw["zfokoop"]
     else:
-        exp_liq = torch.exp(thf.r3les * (ztp1 - cst.rtt) / (ztp1 - thf.r4les))
-        exp_ice = torch.exp(thf.r3ies * (ztp1 - cst.rtt) / (ztp1 - thf.r4ies))
+        exp_liq, exp_ice, zfoeewmt, zqsmix = sat_mix(ztp1, zfoealfa, pap, c)
         zfoeeliq = thf.r2es * exp_liq
         zfoeeice = thf.r2es * exp_ice
-        zfoeewmt = mn(
-            thf.r2es * (zfoealfa * exp_liq + (1.0 - zfoealfa) * exp_ice)
-            / pap, 0.5
-        )
-        zqsmix = zfoeewmt / (1.0 - RETV * zfoeewmt)
         zdelta = foedelta(ztp1, cst)
         zfoeew = mn((zdelta * zfoeeliq + (1.0 - zdelta) * zfoeeice) / pap,
                     0.5)
@@ -538,29 +581,8 @@ def level_step(x: dict, carry: dict, c) -> tuple[dict, dict]:
         # evaluated at load time in fp64 (physics/satfold.newton_zdqs)
         zdqs = x["zdqs"]
     else:
-        zdtdp = zrdcp * ztp1 / pap
-        zdpmxdt = zdp * zqtmst
-        zmfdn2 = madd(not_last, x["pmf_next"])
-        zwtot = x["pvervel"] + 0.5 * RG * (x["pmf"] + zmfdn2)
-        zwtot = mn(zdpmxdt, mx(-zdpmxdt, zwtot))
-        zzzdt = x["zhr"]  # PHRSW + PHRLW (ref: 1289)
-        zdtdiab = mn(zdpmxdt * zdtdp, mx(-zdpmxdt * zdtdp, zzzdt)) * ptsphy
-        zdtforc = zdtdp * zwtot * ptsphy + zdtdiab
-        tloc = mx(ztp1 + zdtforc, 160.0)
-        qloc = zqsmix
-        zqp = 1.0 / pap
-        # inlined CUADJTQ, 2 Newton iterations (ref: 1303-1319)
-        for _ in range(2):
-            alfa_n = foealfa(tloc, thf)
-            zqsat = mn(foeewm_a(tloc, alfa_n, cst, thf) * zqp, 0.5)
-            zcor_n = 1.0 / (1.0 - RETV * zqsat)
-            zqsat = zqsat * zcor_n
-            zcond = (qloc - zqsat) / (
-                1.0 + zqsat * zcor_n * foedem_a(tloc, alfa_n, thf)
-            )
-            tloc = tloc + foeldcpm_a(alfa_n, thf) * zcond
-            qloc = qloc - zcond
-        zdqs = qloc - zqsmix
+        zdqs = cuadj_zdqs(ztp1, pap, zdp, x["pmf"], x["pmf_next"], not_last,
+                          x["pvervel"], x["zhr"], zqsmix, c)
 
     # 3.4a evaporation of clouds (ref: 1333-1356)
     evap_m = zdqs > 0.0

@@ -14,7 +14,8 @@ src/cloudsc_cuda/cloudsc/cloudsc_driver.cu, README.md:311-318). Two engines
     construction, choose the payload: CLOUDSC_PACKED_STORAGE (default 1:
     the pack built on the host; 0: the plain field dict of the scan
     engine, padded as it pads, which each step reads in place, with no
-    pack, `cuda_cloudsc.cloudsc_fused` on the dict: the per-field entry);
+    pack, `cuda_cloudsc.cloudsc_fused` on the dict: the per-field entry,
+    whose build streams the ZDQS row zdqs_kernel writes from the dict);
     the pack's form from CLOUDSC_FOLD_INPUTS (default 1: section 1's state
     sums and the summed pairs folded in fp64 on the host; 0: the unfolded
     pack, the kernel forming them, with the in-line CUADJTQ),

@@ -1,23 +1,34 @@
 // csrc/cloudsc_scheme.cuh compiled for the host: fused_kernel's level loop
 // (csrc/cloudsc_fused.cu) with direct loads in place of the shared-memory
-// ring, one column after another, in double. tests/test_torch_kernel.py
-// builds it with g++ -ffp-contract=off, a stub cuda_runtime.h and the
-// kernel version's CLOUDSC_* macros (scheme version, form, output rows,
-// skips), and holds
-// its outputs to the plain version's, so the CUDA header's arithmetic and
-// branches are checked on a host without a card.
+// ring, one column after another, in double (or HARNESS_T, float), and
+// zdqs_kernel's level_zdqs for every (level, column). tests/
+// test_torch_kernel.py builds it with g++ -ffp-contract=off, a stub
+// cuda_runtime.h and the kernel version's CLOUDSC_* macros (scheme
+// version, form, output rows, skips), and holds its outputs to the plain
+// version's, so the CUDA header's arithmetic and branches are checked on a
+// host without a card.
 //
-//   harness NLEV NCOL NROWS DIR   reads DIR/{pack,col,consts}.bin (float64)
-//                                 and writes DIR/out.bin: o_lev, o_half,
-//                                 o_prainfrac
+//   harness NLEV NCOL NROWS DIR        reads DIR/{pack,col,consts}.bin
+//                                      (float64) and writes DIR/out.bin:
+//                                      o_lev, o_half, o_prainfrac
+//   harness NLEV NCOL NROWS DIR zdqs   reads DIR/{pack,consts}.bin and
+//                                      writes DIR/zdqs.bin: the (nlev,
+//                                      ncol) ZDQS row (0 above the cloud
+//                                      top, as level_zdqs gives it)
+// Every value is read and written as float64 and cast to T and back.
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <vector>
 
 #include "cloudsc_scheme.cuh"
 
 using namespace cloudsc;
+#ifdef HARNESS_T
+using T = HARNESS_T;
+#else
 using T = double;
+#endif
 
 enum { OL_PLUDE, OL_PCOVPTOT, OL_TEND_T, OL_TEND_Q, OL_TEND_A, OL_TCLD0,
        OL_COUNT = OL_TCLD0 + 4 };
@@ -150,18 +161,23 @@ static void column(const T* pack, const T* col, const T* K, T* o_lev,
 static std::vector<T> read(const char* dir, const char* name, size_t count) {
   char path[4096];
   snprintf(path, sizeof path, "%s/%s", dir, name);
-  std::vector<T> v(count);
+  std::vector<double> v(count);
   FILE* f = fopen(path, "rb");
-  if (!f || fread(v.data(), sizeof(T), count, f) != count) {
+  if (!f || fread(v.data(), sizeof(double), count, f) != count) {
     fprintf(stderr, "cannot read %zu values from %s\n", count, path);
     exit(2);
   }
   fclose(f);
-  return v;
+  return std::vector<T>(v.begin(), v.end());
+}
+
+static void write(FILE* f, const std::vector<T>& v) {
+  const std::vector<double> d(v.begin(), v.end());
+  fwrite(d.data(), sizeof(double), d.size(), f);
 }
 
 int main(int argc, char** argv) {
-  if (argc != 5) return 2;
+  if (argc != 5 && !(argc == 6 && !strcmp(argv[5], "zdqs"))) return 2;
   const int nlev = atoi(argv[1]), ncol = atoi(argv[2]), nrows = atoi(argv[3]);
   const char* dir = argv[4];
   if (nrows != R_COUNT) {
@@ -170,20 +186,38 @@ int main(int argc, char** argv) {
     return 3;
   }
   const auto pack = read(dir, "pack.bin", size_t(nlev + 1) * nrows * ncol);
-  const auto col = read(dir, "col.bin", size_t(4) * ncol);
   const auto K = read(dir, "consts.bin", C_COUNT);
+  char path[4096];
+  if (argc == 6) {
+    // zdqs_kernel's element (k, j), the pack's edge row standing for the
+    // Rows policy's clamp
+    std::vector<T> zdqs(size_t(nlev) * ncol);
+    for (int k = 0; k < nlev; ++k)
+      for (int j = 0; j < ncol; ++j) {
+        auto P = [&](int lev, int r) {
+          return pack[(size_t(lev) * nrows + r) * ncol + j];
+        };
+        zdqs[size_t(k) * ncol + j] = level_zdqs<T>(P, k, nlev, K.data());
+      }
+    snprintf(path, sizeof path, "%s/zdqs.bin", dir);
+    FILE* f = fopen(path, "wb");
+    if (!f) return 4;
+    write(f, zdqs);
+    fclose(f);
+    return 0;
+  }
+  const auto col = read(dir, "col.bin", size_t(4) * ncol);
   std::vector<T> o_lev(size_t(nlev) * OL_COUNT * ncol),
       o_half(size_t(nlev + 1) * OH_COUNT * ncol), o_pr(ncol);
   for (int j = 0; j < ncol; ++j)
     column(pack.data(), col.data(), K.data(), o_lev.data(), o_half.data(),
            o_pr.data(), nlev, ncol, nrows, j);
-  char path[4096];
   snprintf(path, sizeof path, "%s/out.bin", dir);
   FILE* f = fopen(path, "wb");
   if (!f) return 4;
-  fwrite(o_lev.data(), sizeof(T), o_lev.size(), f);
-  fwrite(o_half.data(), sizeof(T), o_half.size(), f);
-  fwrite(o_pr.data(), sizeof(T), o_pr.size(), f);
+  write(f, o_lev);
+  write(f, o_half);
+  write(f, o_pr);
   fclose(f);
   return 0;
 }

@@ -2,8 +2,10 @@
 the same inputs, their launch counts (K1's three bodies, the overlap probe,
 the copy probe), K1's occupancy, each scheme version's and each form's
 build of K1, the column layouts after the ungroup, the validation
-norms reduced on the card against the host's, and the flux rows' kernel
-(csrc/foldo.cu) against its plain loop, bit for bit. Every test
+norms reduced on the card against the host's, the flux rows' kernel
+(csrc/foldo.cu) against its plain loop, and zdqs_kernel against
+`zdqs_plain` and a field dict's step against the in-line build, bit for
+bit. Every test
 needs a CUDA device and skips without one (marker `cuda`). The module imports no JAX, so that it
 also runs on a GPU host without it, where the repo's conftest (which
 imports JAX) is left out:
@@ -635,8 +637,9 @@ def test_layouts_equal_sorted_main_path(cuda, env, monkeypatch):
 def test_fields_entry_bitwise_on_the_card(cuda, dtype):
     """The per-field entry on a field dict expanded on the card: its device
     pack equals the host's unfolded pack, and its outputs equal the
-    unfolded build's on that pack and the plain version's, bit for bit, at
-    a ragged 16,387 columns; one launch of the unfolded build a call."""
+    unfolded (in-line CUADJTQ) build's on that pack and the plain
+    version's, bit for bit, at a ragged 16,387 columns; one launch of the
+    dict's build (the ZDQS row streamed) a call."""
     from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
 
     inp = tdata.load_input(tdata.default_input_path(), 16387)
@@ -647,7 +650,7 @@ def test_fields_entry_bitwise_on_the_card(cuda, dtype):
                                    column_order="cyclic")
     dev = cc.pack_inputs(fields, params)
     assert torch.equal(dev.pack.cpu(), host.pack)
-    v = cc.kernel_version(c, dev.form)
+    v = cc.kernel_version(c, cc.ROWS_FORM)
     tracing.reset()
     got = cc.cloudsc_fused_fields(fields, params, inp.ptsphy)
     torch.cuda.synchronize()
@@ -717,9 +720,10 @@ def test_foldo_kernel_bitwise_equals_plain(cuda, ncol, kind, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_step_device_ops_on_the_card(cuda, dtype):
     """The resident step on the card (a field dict read in place by K1,
-    then `assemble`) issues 4 device operations: K1's one and `assemble`'s
-    3 (the flux rows' one launch, the cloud tendencies' zeros and stack),
-    and no pack; `launches.foldo` counts one launch a step and
+    then `assemble`) issues 5 device operations: the K1 layer's 2
+    (zdqs_kernel's ZDQS row, then K1) and `assemble`'s 3 (the flux rows'
+    one launch, the cloud tendencies' zeros and stack), and no pack;
+    `launches.foldo` and `launches.zdqs` count one launch a step and
     `launches.k1.in_place` every K1 launch."""
     from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
 
@@ -733,8 +737,9 @@ def test_step_device_ops_on_the_card(cuda, dtype):
         cc.assemble(step(fields), fields, step.c)
     torch.cuda.synchronize()
     assert [tracing.counter(n) for n in ("ops.pack", "ops.k1",
-                                         "ops.assemble")] == [0, 2, 6]
+                                         "ops.assemble")] == [0, 4, 6]
     assert tracing.counter("launches.foldo") == 2
+    assert tracing.counter("launches.zdqs") == 2
     assert tracing.counter("launches.k1.in_place") == 2
     assert tracing.counter("pack_bytes") == 0
 
@@ -763,21 +768,23 @@ def _outputs_bitwise(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["reference", "aerosol"])
 def test_in_place_step_bitwise_equals_packed(cuda, case, dtype):
-    """The step on a field dict read in place (the Rows policy) gives the
-    21 outputs of the packed step (`pack_inputs` and the Pack policy of
-    the same build) bit for bit at a ragged 16,387 columns, for the
-    reference configuration and the aerosol build's extra rows: one K1
-    launch, counted in place, and no pack."""
+    """The step on a field dict read in place (zdqs_kernel's ZDQS row, then
+    the Rows policy streaming it) gives the 21 outputs of the packed step
+    (`pack_inputs` and the Pack policy of the unfolded build, the in-line
+    CUADJTQ) bit for bit at a ragged 16,387 columns, for the reference
+    configuration and the aerosol build's extra rows: one K1 launch,
+    counted in place, after one zdqs_kernel launch, and no pack."""
     inp, params, config, fields = _in_place_case(case, dtype, cuda)
     step = cc.FusedStep(params, inp.ptsphy, dtype, config).to(cuda)
     assert cc.rows_in_place(fields, step.c)
     tracing.reset()
     got = cc.assemble(step(fields), fields, step.c)
     torch.cuda.synchronize()
-    assert [tracing.counter(n) for n in ("ops.pack", "ops.k1",
-                                         "launches.k1.in_place")] == [0, 1, 1]
+    assert [tracing.counter(n) for n in (
+        "ops.pack", "ops.k1", "launches.k1.in_place",
+        "launches.zdqs")] == [0, 2, 1, 1]
     assert tracing.keyed("launches.k1.version") == {
-        cc.kernel_version(step.c, cc.UNFOLDED_FORM): 1}
+        cc.kernel_version(step.c, cc.ROWS_FORM): 1}
     p = cc.pack_inputs(fields, params, config)
     want = cc.assemble(cc.cloudsc_fused(p, step.c), fields, step.c)
     torch.cuda.synchronize()
@@ -804,27 +811,80 @@ def test_refused_dict_falls_back_to_the_pack(cuda, fault, dtype):
         cc.cloudsc_fused(bad, step.c)
     with pytest.raises(ValueError, match=f"in place: {named}"):
         step(bad)
+    with pytest.raises(ValueError, match=f"in place: {named}"):
+        cc.zdqs_row(bad, step.c)
     torch.cuda.synchronize()
-    assert [tracing.counter(n) for n in ("ops.pack", "ops.k1",
-                                         "launches.k1.in_place")] == [0] * 3
+    assert [tracing.counter(n) for n in (
+        "ops.pack", "ops.k1", "launches.k1.in_place",
+        "launches.zdqs")] == [0] * 4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_rows_policy_occupancy(cuda, dtype):
-    """The Rows policy's build of the unfolded K1 takes within 4 registers
-    of the Pack policy's in the same library, uses no more local memory a
-    thread (none in fp32; in fp64 both sit at the launch bound's 255
-    registers and spill 16 B each, as measured on an H100), and runs the
-    same ring (shared memory, blocks an SM at least one)."""
+    """The Rows policy's build of K1 that a field dict runs (the unfolded
+    rows and the ZDQS row, 28 ring rows) takes within 4 registers of the
+    Pack policy's in the same library, uses no more local memory a thread
+    (none in fp32), runs the same ring, and keeps its blocks an SM: 3 in
+    fp32, 2 in fp64, the fp64 ring then holding 2 x 114,688 B of the SM's
+    shared memory."""
     c = tscheme.derived_consts(
         Params.from_input(tdata.load_input(tdata.default_input_path(), 100)),
         1.0, dtype)
-    lib = build.load_library(version=cc.kernel_version(c, cc.UNFOLDED_FORM))
+    lib = build.load_library(version=cc.kernel_version(c, cc.ROWS_FORM))
     pack = cc.occupancy(dtype, lib)
     rows = cc.occupancy(dtype, lib, rows=True)
     assert rows["local_bytes"] <= pack["local_bytes"], (rows, pack)
     if dtype == torch.float32:
         assert rows["local_bytes"] == 0, rows
     assert abs(rows["registers"] - pack["registers"]) <= 4, (rows, pack)
-    assert rows["smem_bytes"] == pack["smem_bytes"]
-    assert rows["blocks_per_sm"] >= 1
+    assert rows["smem_bytes"] == pack["smem_bytes"] == cc.RING.smem_bytes(
+        torch.finfo(dtype).bits // 8, 28)
+    assert rows["blocks_per_sm"] == (3 if dtype == torch.float32 else 2), \
+        rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ncol", [16387, 163840])
+def test_zdqs_kernel_bitwise_equals_plain(cuda, ncol, dtype):
+    """zdqs_kernel (`zdqs_row`) on a field dict expanded on the card, read
+    in place, against `zdqs_plain` on the same dict: the (nlev, ncol) ZDQS
+    row bit for bit, at a ragged and at the cells' column count; one launch
+    a call, counted in `launches.zdqs` and `ops.k1`."""
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    inp = tdata.load_input(tdata.default_input_path(), ncol)
+    params = Params.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    fields = fields_on_device(inp, dtype, cuda)
+    tracing.reset()
+    got = cc.zdqs_row(fields, c)
+    assert [tracing.counter(n) for n in ("launches.zdqs", "ops.k1")] == [1, 1]
+    want = cc.zdqs_plain(fields, c)
+    torch.cuda.synchronize()
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    assert got.shape == (inp.klev, ncol)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got.view(ints), want.view(ints))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dict_step_bitwise_equals_the_inline_build(cuda, dtype):
+    """`cloudsc_fused` on a 163,840-column cyclic field dict on the card
+    (zdqs_kernel, then K1's Rows policy streaming the ZDQS row) against the
+    unfolded build's Pack policy, which runs the in-line CUADJTQ, on the
+    same columns (`pack_inputs(fields)`): all three buffers bit for bit."""
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    inp = tdata.load_input(tdata.default_input_path(), 163840)
+    params = Params.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    fields = fields_on_device(inp, dtype, cuda)
+    got = cc.cloudsc_fused(fields, c)
+    p = cc.pack_inputs(fields, params)
+    assert not p.fn and not p.fold_inputs
+    want = cc.cloudsc_fused(p, c)
+    torch.cuda.synchronize()
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a.view(ints), b.view(ints))

@@ -15,11 +15,17 @@ card (`tests/test_torch_cuda.py`).
   * reading row r of level lev at level min(lev, h_r - 1), as the kernel
     does, rebuilds `pack_inputs(fields).pack` bit for bit, and the flags in
     their own dtypes read as the pack's `col` does;
-  * on the CPU the step reads the dict through its row table and packs
-    nothing (`ops.pack` 0), its outputs bit for bit the plain version's on
-    `pack_inputs(fields)`, for the reference configuration and the aerosol
-    build; `cloudsc_fused` and the step refuse a dict that `rows_in_place`
-    refuses, naming the row, and a dict with a diagnostic body.
+  * on the CPU the step reads the dict through its row table and the ZDQS
+    row `zdqs_plain` makes of it, and packs nothing (`ops.pack` 0), its
+    outputs bit for bit the plain version's on `pack_inputs(fields)` (the
+    in-line CUADJTQ), for the reference configuration and the aerosol
+    build, at a whole and a ragged column count; `cloudsc_fused`,
+    `zdqs_row` and the step refuse a dict that `rows_in_place` refuses,
+    naming the row, and a dict with a diagnostic body;
+  * `zdqs_plain` is the in-line chain of `scheme.level_step` bit for bit
+    on every level it runs, its last level masks the PMF of the level
+    below, and the levels above the cloud top, which K1 never reads, are
+    0.
 """
 
 import pytest
@@ -111,6 +117,8 @@ def test_rows_in_place_refuses(fault):
     with pytest.raises(ValueError, match=f"in place: .*{NAMED[fault]}"):
         cc.cloudsc_fused(bad, c)
     with pytest.raises(ValueError, match=f"in place: .*{NAMED[fault]}"):
+        cc.zdqs_row(bad, c)
+    with pytest.raises(ValueError, match=f"in place: .*{NAMED[fault]}"):
         cc.FusedStep(params, inp.ptsphy, dtype)(bad)
     assert tracing.counter("ops.pack") == tracing.counter("pack_bytes") == 0
 
@@ -161,22 +169,25 @@ def test_clamp_rule_rebuilds_the_device_pack(precision, case):
     assert torch.equal(fields["paph"][nlev], p.col[3])
 
 
+@pytest.mark.parametrize("ncol", [8, 37])
 @pytest.mark.parametrize("case", ["reference", "aerosol"])
 @pytest.mark.parametrize("precision", ["fp32", "fp64"])
-def test_cpu_step_packs_and_reads_nothing_in_place(precision, case):
-    """On the CPU the step reads a dict through its row table, as the Rows
-    policy does, and packs nothing (`ops.pack` and `pack_bytes` 0, no
-    launch): its raw buffers are the plain version's on
-    `pack_inputs(fields)` bit for bit, the aerosol build's extra rows
-    included."""
+def test_cpu_step_packs_and_reads_nothing_in_place(precision, case, ncol):
+    """On the CPU the step reads a dict through its row table and the ZDQS
+    row of `zdqs_plain`, as the Rows policy of the dict's build does, and
+    packs nothing (`ops.pack` and `pack_bytes` 0, no launch): its raw
+    buffers are the plain version's on `pack_inputs(fields)`, whose level
+    loop runs the in-line CUADJTQ, bit for bit, the aerosol build's extra
+    rows included, at a whole and a ragged column count."""
     dtype = DTYPES[precision]
-    inp, params, config, c, fields = _case(case, dtype, ncol=8)
+    inp, params, config, c, fields = _case(case, dtype, ncol=ncol)
     step = cc.FusedStep(params, inp.ptsphy, dtype, config)
     tracing.reset()
     got = step(fields)
-    assert [tracing.counter(n) for n in ("ops.pack", "pack_bytes", "ops.k1",
-                                         "launches.k1.in_place")] == [0] * 4
-    assert tracing.counter("columns") == 8
+    assert [tracing.counter(n) for n in (
+        "ops.pack", "pack_bytes", "ops.k1", "launches.k1.in_place",
+        "launches.zdqs")] == [0] * 5
+    assert tracing.counter("columns") == ncol
     want = cc.cloudsc_fused_plain(cc.pack_inputs(fields, params, config), c)
     ints = torch.int32 if dtype == torch.float32 else torch.int64
     for a, b in zip(got, want):
@@ -190,9 +201,13 @@ def test_cpu_step_packs_and_reads_nothing_in_place(precision, case):
     ("_ZN7cloudsc12fused_kernelIdNS_4RowsIdEEEEvPKT_S5_PKdPS3_S8_S8_iiiT0_",
      "fused_f64_rows"),
     ("_ZN7cloudsc12floor_kernelIdEEvPKT_S3_PKdPS1_S6_S6_iii", "floor_f64"),
+    ("_ZN7cloudsc11zdqs_kernelIdEEvNS_10ZdqsConstsIT_EEPS2_iiNS_4RowsIS2_EE",
+     "zdqs_f64"),
 ])
 def test_kernel_key_names_the_policy(mangled, key):
-    """The ptxas report keeps the two policies' builds of K1 apart."""
+    """The ptxas report keeps the two policies' builds of K1 apart, and
+    zdqs_kernel (whose Rows table is a parameter, not a template argument)
+    from both."""
     assert build.kernel_key(mangled) == key
 
 
@@ -202,10 +217,65 @@ def test_rows_entries_only_in_the_unfolded_build():
     not."""
     assert set(build.UNFOLDED_ONLY) == {
         f"cloudsc_fused_rows{o}_{t}" for o in ("", "_occupancy")
-        for t in ("f32", "f64")}
+        for t in ("f32", "f64")} | {
+        f"cloudsc_zdqs_rows_{t}" for t in ("f32", "f64")}
     assert all(n in build.ENTRY_POINTS for n in build.UNFOLDED_ONLY)
-    assert cc.kernel_version(
+    v = cc.kernel_version(
         tscheme.derived_consts(
             Params.from_input(tdata.load_input(tdata.default_input_path(),
                                                8)), 1.0, torch.float32),
-        cc.UNFOLDED_FORM).fold_inputs is False
+        cc.ROWS_FORM)
+    assert (v.fold_inputs, v.fn, v.fc, v.fd) == (False, True, False, False)
+
+
+@pytest.mark.parametrize("ncol", [8, 37])
+@pytest.mark.parametrize("precision", ["fp32", "fp64"])
+def test_zdqs_plain_is_the_inline_chain(precision, ncol, monkeypatch):
+    """`zdqs_plain` on a dict is, on every level the column sweep reaches
+    (k >= NCLDTOP - 1), the ZDQS that `scheme.level_step`'s in-line chain
+    computes in the plain version's level loop on `pack_inputs(fields)`,
+    bit for bit; its last level is the chain with the PMF of the level
+    below masked, and the levels above the cloud top, which K1 never reads,
+    are 0. On the CPU `zdqs_row` is `zdqs_plain`. The last
+    level's vertical velocity is set to 0 and its PMFU to a tenth of the
+    forcing chain's clamp, so that the mask moves ZDQS there."""
+    dtype = DTYPES[precision]
+    inp, params, _, c, fields = _case("reference", dtype, ncol=ncol)
+    nlev, ktop = inp.klev, c.NCLDTOP - 1
+    last = nlev - 1
+    zdp = fields["paph"][last + 1] - fields["paph"][last]
+    fields = dict(fields, pvervel=fields["pvervel"].clone(),
+                  pmfu=fields["pmfu"].clone(), pmfd=fields["pmfd"].clone())
+    fields["pvervel"][last] = 0.0
+    fields["pmfu"][last] = 0.1 * zdp * c.zqtmst / (0.5 * c.RG)
+    fields["pmfd"][last] = 0.0
+    zdqs = cc.zdqs_plain(fields, c)
+    assert zdqs.shape == (nlev, ncol) and zdqs.dtype == dtype
+    assert bool(torch.isfinite(zdqs).all())
+    assert not bool(zdqs[:ktop].any())
+    assert torch.equal(cc.zdqs_row(fields, c), zdqs)
+    seen = []
+    inline = tscheme.cuadj_zdqs
+
+    def record(*args):
+        seen.append(inline(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(tscheme, "cuadj_zdqs", record)
+    cc.cloudsc_fused_plain(cc.pack_inputs(fields, params), c)
+    assert len(seen) == nlev - ktop
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    for k, z in zip(range(ktop, nlev), seen):
+        assert torch.equal(z.view(ints), zdqs[k].view(ints)), k
+    # the last level: PMF of the level below (the clamped read) masked
+    pmf = fields["pmfu"][last] + fields["pmfd"][last]
+    ztp1 = fields["pt"][last] + c.ptsphy * fields["tendency_tmp_t"][last]
+    pap = fields["pap"][last]
+    zqsmix = tscheme.sat_mix(ztp1, tscheme.foealfa(ztp1, c.thf), pap, c)[3]
+    args = (ztp1, pap, zdp, pmf, pmf)
+    rest = (fields["pvervel"][last],
+            fields["phrsw"][last] + fields["phrlw"][last], zqsmix, c)
+    unmasked = inline(*args, torch.tensor(True), *rest)
+    assert torch.equal(inline(*args, torch.tensor(False), *rest),
+                       zdqs[last])
+    assert not torch.equal(unmasked, zdqs[last])

@@ -535,28 +535,39 @@ _STUB_CUDA_RUNTIME = """#pragma once
 """
 
 
-def host_harness_outputs(p, c, version, tmp_path):
-    """tests/cpu_scheme_harness.cpp built with g++ -ffp-contract=off and
-    `version`'s CLOUDSC_* macros (a stub cuda_runtime.h in `tmp_path`), run
-    on pack `p` and constants `c`: its outputs after `assemble`."""
+def _host_harness(p, c, version, tmp_path, *mode):
+    """tests/cpu_scheme_harness.cpp built with g++ -ffp-contract=off,
+    `version`'s CLOUDSC_* macros and the working type of pack `p` (a stub
+    cuda_runtime.h in `tmp_path`), run on `p` and constants `c` in `mode`
+    (none: the level loop, or "zdqs"); returns the float64 values it
+    wrote."""
     import subprocess
 
     gxx = shutil.which("g++")
     exe = tmp_path / "harness"
+    (tmp_path / "cuda_runtime.h").write_text(_STUB_CUDA_RUNTIME)
+    t = "float" if p.pack.dtype == torch.float32 else "double"
     r = subprocess.run(
         [gxx, "-O1", "-std=c++17", "-ffp-contract=off", f"-I{tmp_path}",
-         f"-I{build.CSRC}", *version.macros(), "-o", str(exe),
-         str(Path(__file__).with_name("cpu_scheme_harness.cpp"))],
+         f"-I{build.CSRC}", *version.macros(), f"-DHARNESS_T={t}", "-o",
+         str(exe), str(Path(__file__).with_name("cpu_scheme_harness.cpp"))],
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    p.pack.numpy().tofile(tmp_path / "pack.bin")
-    p.col.numpy().tofile(tmp_path / "col.bin")
+    p.pack.double().numpy().tofile(tmp_path / "pack.bin")
+    p.col.double().numpy().tofile(tmp_path / "col.bin")
     cc.const_vector(c).numpy().tofile(tmp_path / "consts.bin")
     r = subprocess.run([str(exe), str(p.nlev), str(p.ncol), str(len(p.rows)),
-                        str(tmp_path)], capture_output=True, text=True,
+                        str(tmp_path), *mode], capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stderr
-    raw = torch.from_numpy(np.fromfile(tmp_path / "out.bin", np.float64))
+    out = tmp_path / ("zdqs.bin" if mode else "out.bin")
+    return torch.from_numpy(np.fromfile(out, np.float64))
+
+
+def host_harness_outputs(p, c, version, tmp_path):
+    """The host-compiled scheme header's level loop (`_host_harness`) on
+    pack `p`: its outputs after `assemble`, in the pack's dtype."""
+    raw = _host_harness(p, c, version, tmp_path).to(p.pack.dtype)
     nl, n = p.nlev, p.ncol
     fo = version.fold_outputs
     sizes = (nl * len(cc.OLEV_ROWS) * n,
@@ -564,6 +575,14 @@ def host_harness_outputs(p, c, version, tmp_path):
     lev, half, pr = raw.split(sizes)
     return cc.assemble((lev.reshape(nl, -1, n), half.reshape(nl + 1, -1, n),
                         pr), p, c, fo)
+
+
+def host_harness_zdqs(p, c, version, tmp_path):
+    """The host-compiled header's `level_zdqs` (zdqs_kernel's element) for
+    every (level, column) of pack `p`: the `(nlev, ncol)` ZDQS row in the
+    pack's dtype."""
+    return _host_harness(p, c, version, tmp_path, "zdqs").to(
+        p.pack.dtype).reshape(p.nlev, p.ncol)
 
 
 @pytest.mark.parametrize("case", ["reference", *synthetic.VERSION_CASES])
@@ -587,7 +606,6 @@ def test_scheme_header_matches_plain_on_cpu(case, tmp_path):
     if case != "reference":
         inp, params, cfg = synthetic.version_case(case, inp, params)
     c = tscheme.derived_consts(params, inp.ptsphy, torch.float64, cfg)
-    (tmp_path / "cuda_runtime.h").write_text(_STUB_CUDA_RUNTIME)
     p = cc.pack_inputs_folded(inp, params, cfg, dtype=torch.float64)
     got = host_harness_outputs(p, c, cc.kernel_version(c), tmp_path)
     want = cc.assemble(cc.cloudsc_fused_plain(p, c), p, c)
@@ -596,3 +614,108 @@ def test_scheme_header_matches_plain_on_cpu(case, tmp_path):
            if not relerr(getattr(got, name).numpy(),
                          getattr(want, name).numpy()) < FP64_TOL}
     assert not bad, f"{case}: the host-compiled scheme header vs plain: {bad}"
+
+
+def _dict_pack(ncol, dtype):
+    """(params, derived_consts, the unfolded pack of `make_inputs`' field
+    dict at `ncol` columns, the dict): what a field dict's build reads."""
+    from cloudsc_tpu_torch import data as tdata
+    from cloudsc_tpu_torch.params import Params as TParams
+    from cloudsc_tpu_torch.physics.cloudsc import make_inputs as tmake
+
+    inp = tdata.load_input(tdata.default_input_path(), ncol)
+    params = TParams.from_input(inp)
+    c = tscheme.derived_consts(params, inp.ptsphy, dtype)
+    fields = tmake(inp, dtype)
+    return params, c, cc.pack_inputs(fields, params), fields
+
+
+def _with_zdqs(p, zdqs):
+    """Unfolded pack `p` with the ZDQS row `zdqs` (nlev, ncol) in its
+    place (its edge row nlev replicated): the rows of a field dict's
+    build (`cuda_cloudsc.ROWS_FORM`)."""
+    rows = cc.pack_rows(aer=p.rows[len(cc.UNFOLDED_ROWS):], fold_inputs=False)
+    i = rows.index(cc.ZDQS_ROW)
+    z = torch.cat([zdqs, zdqs[-1:]])[:, None]
+    pack = torch.cat([p.pack[:, :i], z, p.pack[:, i:]], dim=1).contiguous()
+    return cc.FoldedPack(pack=pack, col=p.col, rows=rows, fn=True,
+                         fold_inputs=False)
+
+
+@pytest.mark.parametrize("ncol", [37, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["fp32", "fp64"])
+def test_header_zdqs_row_is_the_inline_chain(dtype, ncol, tmp_path):
+    """The host-compiled header in both precisions (tests/
+    cpu_scheme_harness.cpp): `level_zdqs` for every (level, column) — what
+    zdqs_kernel computes — is the in-line CUADJTQ bit for bit: the dict
+    build's level loop (CLOUDSC_FN beside the unfolded rows) streaming that
+    row gives the in-line build's 21 outputs bit for bit, so K1 reads
+    none of its levels above the cloud top, which are 0 in it and in
+    `zdqs_plain`'s. Below, the row is `zdqs_plain`'s within 256 units of
+    the working precision's epsilon (errsum/refsum, FP64_TOL's scale: the
+    host libm and torch's CPU exponentials differ by ulps, which the
+    subtraction ZDQS = qloc - ZQSMIX magnifies; measured 1.8e-14 on one
+    fp64 level), over all those levels and the last (PMF of the level below
+    masked) each; the fp64 build's outputs are the plain version's on the
+    same pack within FP64_TOL."""
+    from cloudsc_tpu_torch.physics.cloudsc import CloudscOutputs
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    _, c, p, fields = _dict_pack(ncol, dtype)
+    inline = cc.KernelVersion(fold_inputs=False, fn=False)
+    rows = cc.kernel_version(c, cc.ROWS_FORM)
+    assert (rows.fold_inputs, rows.fn) == (False, True)
+    zdqs = host_harness_zdqs(p, c, inline, tmp_path)
+    want = host_harness_outputs(p, c, inline, tmp_path)
+    q = _with_zdqs(p, zdqs)
+    got = host_harness_outputs(q, c, rows, tmp_path)
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    for name in CloudscOutputs._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a.view(ints), b.view(ints)), name
+    plain = cc.zdqs_plain(fields, c)
+    tol = 256 * torch.finfo(dtype).eps
+    ktop = c.NCLDTOP - 1
+    assert bool(torch.isfinite(zdqs).all())
+    assert not bool(zdqs[:ktop].any()) and not bool(plain[:ktop].any())
+    for part in (slice(ktop, None), slice(-1, None)):
+        err = relerr(zdqs[part].numpy(), plain[part].numpy())
+        assert err < tol, (part, err)
+    if dtype == torch.float64:
+        ref = cc.assemble(cc.cloudsc_fused_plain(q, c), q, c)
+        bad = {n: relerr(getattr(got, n).numpy(), getattr(ref, n).numpy())
+               for n in CloudscOutputs._fields
+               if not relerr(getattr(got, n).numpy(),
+                             getattr(ref, n).numpy()) < FP64_TOL}
+        assert not bad, bad
+
+
+# an H100 SM's shared memory (228 KB) and the 1 KB the runtime keeps of it
+# for each resident block (CUDA C++ Programming Guide, compute capability
+# 9.0)
+SM_SMEM_BYTES, BLOCK_SMEM_RESERVE = 233472, 1024
+
+
+@pytest.mark.parametrize("form", ["main", "unfolded", "rows"])
+@pytest.mark.parametrize("itemsize,blocks", [(4, 3), (8, 2)],
+                         ids=["fp32", "fp64"])
+def test_ring_keeps_its_blocks_an_sm(form, itemsize, blocks):
+    """K1's ring at the rows of the main path (19), the unfolded pack (27)
+    and a field dict's build (28, the ZDQS row beside the fields) fits the
+    blocks an SM that the builds run with in shared memory: 3 in fp32 (its
+    registers allow no more), 2 in fp64, the launch bound's. Each block
+    holds the ring (`RingGeometry.smem_bytes`), the constants cast to the
+    working type (static) and the runtime's reserve; the ring's schedule
+    does not depend on the rows (`ring_schedule`)."""
+    g = cc.RING
+    nrows = len({"main": cc.pack_rows(),
+                 "unfolded": cc.pack_rows(fn=False, fold_inputs=False),
+                 "rows": cc.pack_rows(fold_inputs=False)}[form])
+    assert nrows == {"main": 19, "unfolded": 27, "rows": 28}[form]
+    per_block = g.smem_bytes(itemsize, nrows) \
+        + itemsize * len(cc.CONST_NAMES) + BLOCK_SMEM_RESERVE
+    assert SM_SMEM_BYTES // per_block >= max(blocks, g.min_blocks)
+    assert _replay_ring(cc.ring_schedule(137, g.stages), 137, g.stages) == []

@@ -85,33 +85,39 @@ def test_unfolded_rows_are_the_jax_pack_rows():
     aer = ("pre_ice", "pccn")
     assert cc.pack_rows(fn=False, aer=aer, fold_inputs=False) == \
         cc.UNFOLDED_ROWS + aer
-    # the JAX gate `fold and fn`: an unfolded pack has no optional row
-    for form in (dict(fn=True), dict(fc=True, fn=False),
-                 dict(fd=True, fn=False)):
+    # an unfolded pack has no folded row (fc, fd, in either ZDQS form);
+    # the ZDQS row a field dict's build streams comes after its rows
+    for form in (dict(fc=True, fn=False), dict(fd=True, fn=False),
+                 dict(fc=True), dict(fd=True)):
         with pytest.raises(ValueError):
             cc.pack_rows(fold_inputs=False, **form)
         with pytest.raises(ValueError):
             cc.KernelVersion(fold_inputs=False, **form)
+    assert cc.pack_rows(aer=aer, fold_inputs=False) == \
+        cc.UNFOLDED_ROWS + (cc.ZDQS_ROW,) + aer
+    assert cc.KernelVersion(fold_inputs=False).fn
     v = cc.KernelVersion(fold_inputs=False, fn=False)
     assert "-DCLOUDSC_FOLD_INPUTS=0" in v.macros()
     assert "-DCLOUDSC_FOLD_INPUTS=1" in cc.DEFAULT_VERSION.macros()
 
 
+@pytest.mark.parametrize("fn", [False, True], ids=["inline", "zdqs_row"])
 @pytest.mark.parametrize("aer", [False, True], ids=["no_aer", "aer"])
-def test_unfolded_row_enum_matches_pack_rows(aer):
+def test_unfolded_row_enum_matches_pack_rows(aer, fn):
     """cloudsc_scheme.cuh's `enum Row` under the unfolded build's macros is
-    UNFOLDED_ROWS and the couplings' aerosol rows."""
+    UNFOLDED_ROWS, the ZDQS row in a field dict's build (fn), and the
+    couplings' aerosol rows."""
     from test_torch_engine import _row_enum
 
     v = cc.KernelVersion(iwarmrain=1 if aer else 2, laericesed=aer,
                          laericeauto=aer, laerliqautolsp=aer,
-                         laerliqcoll=aer, fold_inputs=False, fn=False)
+                         laerliqcoll=aer, fold_inputs=False, fn=fn)
     c = type("C", (), dict(LAERICESED=aer, LAERICEAUTO=aer,
                            LAERLIQAUTOLSP=aer, LAERLIQCOLL=aer,
                            IWARMRAIN=v.iwarmrain))
     names = _row_enum(v)
     assert names == [f"R_{n.upper()}" for n in cc.pack_rows(
-        fn=False, aer=cc.aer_rows(c), fold_inputs=False)] + ["R_COUNT"]
+        fn=fn, aer=cc.aer_rows(c), fold_inputs=False)] + ["R_COUNT"]
 
 
 @pytest.mark.parametrize("order", ["cyclic", "grouped"])
