@@ -19,6 +19,19 @@ dtypes: lower-case names, LDCUM bool, KTYPE int32, columns last in cyclic
 order: column j of a share starting at column s takes snapshot column
 (s + j) mod 100). Both sides get the same dict: the program steps on it, and
 the reference reads it.
+
+A configuration's `layout` says how the dict holds its columns (`LAYOUTS`):
+
+  columns        the plain dict above, columns on the last axis; the
+                 default, and what a configuration without the key reads.
+  nproma_blocks  the dwarf's NPROMA-blocked arrays, as the IFS hands them
+                 to the scheme and the GPU variants hold them on the card
+                 (dwarf-p-cloudsc cloudsc.F90:10-36, `(NPROMA, KLEV[, NCLV],
+                 NGPBLKS)`): every field its own C-contiguous tensor whose
+                 memory order is the Fortran array's, `to_blocks`. The
+                 values are the columns layout's, bit for bit. A share must
+                 be a whole number of blocks: the dwarf zero-pads its tail
+                 block, which is left out here.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ LOADED = tuple(n for _, n in FIELDS) + tuple(n for _, n, _ in FLAGS) + (
 NONNEGATIVE = ("PQ", "PCLV")
 FRACTION = "PA"
 DTYPES = {"fp32": torch.float32, "fp64": torch.float64}
+LAYOUTS = ("columns", "nproma_blocks")
 
 
 def seed_key(seed: int) -> int:
@@ -113,14 +127,50 @@ def write_snapshot(path, fields: dict, scalars: dict) -> None:
              **{SCALARS_KEY: np.array(json.dumps(scalars))})
 
 
+def check_layout(layout: str, nproma: int | None, ncol: int) -> None:
+    """Refuse an unknown layout, and a share of `ncol` columns that is not
+    a whole number of NPROMA blocks in the blocked one."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"cellbench: unknown layout {layout!r}; the "
+                         f"harness holds {LAYOUTS}")
+    if layout == "nproma_blocks" and (nproma is None or nproma < 1
+                                      or ncol % nproma):
+        raise ValueError(
+            f"cellbench: a share of {ncol} columns is not a whole number "
+            f"of NPROMA blocks of {nproma}; the dwarf zero-pads its tail "
+            f"block, which the nproma_blocks layout leaves out")
+
+
+def to_blocks(t: torch.Tensor, nproma: int) -> torch.Tensor:
+    """A field with its columns last, `(..., ncol)`, in the dwarf's blocked
+    form `(ncol // nproma, ..., nproma)`, C-contiguous: block b, lane j is
+    column b * nproma + j. Its memory order is the Fortran array's
+    `(NPROMA, ..., NGPBLKS)`: `(nblk, nproma)` a per-column field,
+    `(nblk, h, nproma)` a per-level one, `(nblk, nclv, nlev, nproma)` a
+    species field."""
+    return t.unflatten(-1, (-1, nproma)).movedim(-2, 0).contiguous()
+
+
+def from_blocks(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of `to_blocks`: `(nblk, ..., nproma)` back to
+    `(..., nblk * nproma)`, columns last."""
+    return t.movedim(0, -2).flatten(-2)
+
+
 def field_dict(snap: dict, ncol: int, precision: str, device,
                start: int = 0, amplitude: dict | None = None,
-               generator: torch.Generator | None = None) -> dict:
+               generator: torch.Generator | None = None,
+               layout: str = "columns", nproma: int | None = None) -> dict:
     """The plain field dict of columns [start, start + ncol) of the
     snapshot's cyclic expansion, made on `device`: the file-width arrays
     cross, the expansion is an index on the device. With `amplitude` and
     `generator`, step 3: every element of the state fields takes its own
-    relative draw, made on the device in one call a field."""
+    relative draw, made on the device in one call a field. In the
+    `nproma_blocks` layout each field is made flat, with the same draws in
+    the same order, then blocked (`to_blocks`), and the flat one freed
+    before the next field is made."""
+    check_layout(layout, nproma, ncol)
+    blocked = layout == "nproma_blocks"
     dtype = DTYPES[precision]
     klon = next(v.shape[-1] for k, v in snap.items() if k == "PT")
     idx = torch.arange(start, start + ncol, device=device) % klon
@@ -136,9 +186,12 @@ def field_dict(snap: dict, ncol: int, precision: str, device,
             u = torch.empty_like(t).uniform_(-1.0, 1.0, generator=generator)
             t = _physical(name, t * (1.0 + amplitude[name] * u))
             del u
-        out[key] = t
+        out[key] = to_blocks(t, nproma) if blocked else t
+        del t
     for key, name, to in FLAGS:
-        out[key] = expand(name, to)
+        t = expand(name, to)
+        out[key] = to_blocks(t, nproma) if blocked else t
+        del t
     return out
 
 

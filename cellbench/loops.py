@@ -3,13 +3,16 @@ driven through the port, and the window around them.
 
 A traffic file (`traffic/<mix>.json`) names its loop and its parameters:
 
-  resident  the state lives on the card as the port's plain field dict,
-            one share a card (`runtime.dist.split_columns`, the rule
-            `CloudscDriver.shard` cuts by); a unit is one step on every
-            card: `CloudscDriver.step` (the `FusedStep`: the device pack
-            and K1) on the dict, then `kernels.cuda_cloudsc.assemble`, all
-            21 outputs on the card. Steps run back to back, with no host
-            sync. Every column takes its own draw, so no two are equal.
+  resident  the state lives on the card as the port's field dict, one
+            share a card (`runtime.dist.split_columns`, the rule
+            `CloudscDriver.shard` cuts by), in the configuration's
+            `layout` (`inputs.LAYOUTS`: the plain columns, or the dwarf's
+            NPROMA blocks); a unit is one step on every card:
+            `CloudscDriver.step` (the `FusedStep`: `zdqs_kernel` and K1 on
+            the dict) on the dict as it is held, then
+            `kernels.cuda_cloudsc.assemble`, all 21 outputs on the card.
+            Steps run back to back, with no host sync. Every column takes
+            its own draw, so no two are equal.
   dwarf     a unit is one whole dwarf run with one driver built once: the
             port's loader on the seeded snapshot written to TMPDIR, then
             `CloudscDriver.run(inp, iterations=1, fetch_outputs=False)` (the
@@ -18,7 +21,11 @@ A traffic file (`traffic/<mix>.json`) names its loop and its parameters:
             wrote before the set-up clock started.
 
 Both loops keep the last unit's outputs for the comparison, which runs
-after the window, once the peak memory has been read.
+after the window, once the peak memory has been read. In the blocked
+layout the comparison takes the port's outputs in the same blocks
+(`(nblk, ..., nproma)` of each canonical `(..., ncol)`) and un-blocks them,
+and the reference reads a flat copy of each share, made from the blocked
+dict after the window and freed once that share is compared.
 """
 
 from __future__ import annotations
@@ -66,6 +73,10 @@ class Cell:
     @property
     def on_card(self) -> bool:
         return self.devices[0].type == "cuda"
+
+    @property
+    def layout(self) -> str:
+        return self.config.get("layout", "columns")
 
 
 class Spans:
@@ -164,19 +175,38 @@ class Loop:
     def unit(self):
         raise NotImplementedError
 
-    def reference_inputs(self) -> list:
-        """[(device, field dict, first canonical column)] the reference
-        reads: the same dicts the program read."""
+    def reference_inputs(self):
+        """(device, field dict, first canonical column) of each share, one
+        at a time, as the reference reads them: the same values the program
+        read, columns last."""
         raise NotImplementedError
 
+    def canonical(self, out, ref):
+        """The port's 21 outputs of a share (`out`) with their columns last,
+        as `ref` holds them: in the blocked layout each must have the
+        blocked shape of its reference, or the comparison raises naming
+        the field, and is un-blocked as the comparison reads it."""
+        got = [getattr(out, n) for n in _field_names()]
+        if self.cell.layout == "columns":
+            return got
+        nproma = int(self.cell.config["nproma"])
+        for n, g, r in zip(_field_names(), got, ref):
+            want = (r.shape[-1] // nproma, *r.shape[:-1], nproma)
+            if tuple(g.shape) != want:
+                raise ValueError(
+                    f"cellbench: the program's {n} has the shape "
+                    f"{tuple(g.shape)}; the {self.cell.layout} layout wants "
+                    f"{want}")
+        return (inputs.from_blocks(g) for g in got)
+
     def compare(self, outs: list, control: bool = False):
-        """The comparison of `outs` (one output tuple a share, canonical
-        column order, as `reference_inputs` lists the shares) with the
-        reference, stepped over each share whole; with `control`, the
-        reference a precision lower (`CONTROL`) stands in the program's
-        place and `outs` is not read."""
+        """The comparison of `outs` (one output tuple a share, in the
+        configuration's layout, as `reference_inputs` gives the shares)
+        with the reference, stepped over each share whole; with `control`,
+        the reference a precision lower (`CONTROL`) stands in the
+        program's place and `outs` is not read."""
         cmp = compare.Comparison(_field_names(), self.cell.config["limits"])
-        for (dev, fields, _), out in zip(self.reference_inputs(), outs):
+        for i, (dev, fields, _) in enumerate(self.reference_inputs()):
             ref = reference.step(fields, self.ref_params, self.ptsphy,
                                  self.ref_config)
             if control:
@@ -185,9 +215,9 @@ class Loop:
                                      self.ref_config, dtype=dtype,
                                      store=store)
             else:
-                got = [getattr(out, n) for n in _field_names()]
+                got = self.canonical(outs[i], ref)
             cmp.add(got, ref)
-            del got, ref
+            del got, ref, fields
         return cmp
 
     def release(self) -> None:
@@ -230,7 +260,8 @@ class Resident(Loop):
                 self.payloads.append(inputs.field_dict(
                     self.snap, b - a, cell.precision, dev, start=a,
                     amplitude=self.amplitude,
-                    generator=inputs.share_generator(cell.seed, i, dev)))
+                    generator=inputs.share_generator(cell.seed, i, dev),
+                    layout=cell.layout, nproma=int(cfg["nproma"])))
         self.outs = [None] * len(self.payloads)
         self.devices = self.driver.devices
 
@@ -246,15 +277,21 @@ class Resident(Loop):
             del res
         return self.outs
 
-    def reference_inputs(self) -> list:
-        return [(d, p, a) for d, p, (a, _) in zip(self.devices,
-                                                  self.payloads, self.shares)]
+    def reference_inputs(self):
+        flat = self.cell.layout == "columns"
+        for d, p, (a, _) in zip(self.devices, self.payloads, self.shares):
+            yield d, p if flat else {k: inputs.from_blocks(v)
+                                     for k, v in p.items()}, a
 
 
 class Dwarf(Loop):
     """A unit is one whole dwarf run from the seeded snapshot."""
 
     def __init__(self, cell: Cell, spans: Spans):
+        if cell.layout != "columns":
+            raise ValueError(
+                f"cellbench: the dwarf loop runs the port's own pack from "
+                f"the snapshot file, so it holds no {cell.layout!r} layout")
         super().__init__(cell, spans)
         from cloudsc_tpu_torch import data
         from cloudsc_tpu_torch.params import Params
@@ -320,10 +357,10 @@ class Dwarf(Loop):
         self.outs = outs
         return self.outs
 
-    def reference_inputs(self) -> list:
+    def reference_inputs(self):
         dev = self.devices[0]
-        return [(dev, inputs.field_dict(self.snap, self.ngptot,
-                                        self.cell.precision, dev), 0)]
+        yield dev, inputs.field_dict(self.snap, self.ngptot,
+                                     self.cell.precision, dev), 0
 
     def release(self) -> None:
         shutil.rmtree(self.tmp, ignore_errors=True)

@@ -9,7 +9,7 @@ from pathlib import Path
 
 import pytest
 
-from cellbench import loops, run, trace
+from cellbench import inputs, loops, run, trace
 
 PKG = Path(__file__).resolve().parents[1]
 ROOT = PKG.parent
@@ -60,6 +60,26 @@ def test_configs_and_cells():
         assert (PKG / "traffic" / f"{w['traffic']}.json").exists()
         cfg = json.loads((PKG / "configs" / f"{w['config']}.json").read_text())
         assert cfg["chips"] == w["chips"]
+
+
+def test_layouts_are_known_and_fit_every_share():
+    """Each configuration file's `layout` is one the harness holds, and in
+    it every share of every cell on the configuration is a whole number of
+    NPROMA blocks (`inputs.check_layout`, which `field_dict` runs before it
+    makes a share)."""
+    from cloudsc_tpu_torch.runtime.dist import split_columns
+
+    for path in sorted((PKG / "configs").glob("*.json")):
+        cfg = json.loads(path.read_text())
+        assert cfg.get("layout", "columns") in inputs.LAYOUTS, path.name
+    for w in BENCH["workloads"]:
+        cfg = json.loads((PKG / "configs" / f"{w['config']}.json")
+                         .read_text())
+        layout = cfg.get("layout", "columns")
+        chips = int(cfg["chips"])
+        for a, b in split_columns(int(cfg["columns_per_chip"]) * chips,
+                                  chips):
+            inputs.check_layout(layout, int(cfg["nproma"]), b - a)
 
 
 def test_metrics_and_their_readers():

@@ -2,8 +2,10 @@
 yardstick that `kernel_roofline` holds the device time to.
 
 The count depends on the columns, the levels and the precision alone, never
-on the form the program streams (folded or unfolded pack, field dict) or on
-its kernels: (a) each input field the reference configuration's scheme
+on the form the program streams (folded or unfolded pack, field dict), on the
+layout the state is held in (columns or the dwarf's NPROMA blocks,
+`inputs.LAYOUTS`: a column's bytes and operations are the same in either) or
+on its kernels: (a) each input field the reference configuration's scheme
 reads, read once; (b) each of the 21 outputs, written once at working
 precision; (c) operations by the reference's flop model (dwarf-p-cloudsc
 timer_mod.F90: 12,482,329 flop per 100 columns at 137 levels, scaled by the
