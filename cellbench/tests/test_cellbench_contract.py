@@ -1,5 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, every metric against
-its reader, and the trace reduction on a synthetic trace."""
+its reader, every configuration file against the CPU rehearsal's tiny size,
+and the trace reduction on a synthetic trace."""
 
 from __future__ import annotations
 
@@ -17,6 +18,9 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# the CPU rehearsal's overrides of every configuration (`run.py --rehearse`)
+TINY = json.loads((PKG / "tests" / "tiny.json").read_text())["config"]
+SEED = 2**31 + 2022
 
 
 def _line(s: str) -> bool:
@@ -62,24 +66,81 @@ def test_configs_and_cells():
         assert cfg["chips"] == w["chips"]
 
 
-def test_layouts_are_known_and_fit_every_share():
-    """Each configuration file's `layout` is one the harness holds, and in
-    it every share of every cell on the configuration is a whole number of
-    NPROMA blocks (`inputs.check_layout`, which `field_dict` runs before it
-    makes a share)."""
+def _config(name: str) -> dict:
+    return json.loads((PKG / "configs" / f"{name}.json").read_text())
+
+
+def checked_shares(cfg: dict, over: dict) -> tuple[dict, list]:
+    """`cfg` with `over` merged over it (the CPU rehearsal's tiny size, as
+    `run.py --rehearse` merges it; {} for the size on the card), and each
+    card's (start, columns) as `loops.Resident` cuts them, each passed
+    through `inputs.check_layout`: it raises where a share is not a whole
+    number of the configuration's NPROMA blocks."""
     from cloudsc_tpu_torch.runtime.dist import split_columns
 
+    cfg = {**cfg, **over}
+    chips = int(cfg["chips"])
+    shares = [(a, b - a) for a, b in
+              split_columns(int(cfg["columns_per_chip"]) * chips, chips)]
+    for _, ncol in shares:
+        inputs.check_layout(cfg.get("layout", "columns"), int(cfg["nproma"]),
+                            ncol)
+    return cfg, shares
+
+
+def test_layouts_are_known_and_fit_every_share():
+    """Each configuration file's `layout` is one the harness holds, and in
+    it every share is a whole number of NPROMA blocks
+    (`inputs.check_layout`, which `field_dict` runs before it makes a
+    share): every share of every cell on the card, and every share of
+    every configuration file at the CPU rehearsal's tiny size, so that a
+    file added to `configs/` is held to it with no edit here."""
     for path in sorted((PKG / "configs").glob("*.json")):
         cfg = json.loads(path.read_text())
         assert cfg.get("layout", "columns") in inputs.LAYOUTS, path.name
+        checked_shares(cfg, TINY)
     for w in BENCH["workloads"]:
-        cfg = json.loads((PKG / "configs" / f"{w['config']}.json")
-                         .read_text())
-        layout = cfg.get("layout", "columns")
-        chips = int(cfg["chips"])
-        for a, b in split_columns(int(cfg["columns_per_chip"]) * chips,
-                                  chips):
-            inputs.check_layout(layout, int(cfg["nproma"]), b - a)
+        checked_shares(_config(w["config"]), {})
+
+
+RESIDENT = [w["config"] for w in BENCH["workloads"]
+            if json.loads((PKG / "traffic" / f"{w['traffic']}.json")
+                          .read_text())["loop"] == "resident"]
+
+
+@pytest.mark.parametrize("name", RESIDENT)
+def test_rehearsal_holds_each_resident_configuration_in_blocks(name):
+    """A blocked copy of each resident cell's configuration, at the tiny
+    size: three blocks of 16 a share, on one card or four, made on the
+    CPU."""
+    cfg, shares = checked_shares({**_config(name), "layout": "nproma_blocks"},
+                                 TINY)
+    assert len(shares) == int(cfg["chips"])
+    amplitude = cfg["perturbation"]["relative"]
+    fields, scalars = inputs.load_snapshot()
+    snap = inputs.seeded_snapshot(fields, scalars, SEED, amplitude)
+    for i, (start, ncol) in enumerate(shares):
+        d = inputs.field_dict(
+            snap, ncol, cfg["precision"], "cpu", start=start,
+            amplitude=amplitude,
+            generator=inputs.share_generator(SEED, i, "cpu"),
+            layout=cfg["layout"], nproma=int(cfg["nproma"]))
+        assert d["pt"].shape == (3, 137, 16), (name, i)
+        assert d["pclv"].shape == (3, 5, 137, 16), (name, i)
+        assert d["pt"].dtype == inputs.DTYPES[cfg["precision"]]
+
+
+@pytest.mark.parametrize("tiny,nproma", [
+    ({**TINY, "nproma": 32}, 32),
+    # the tiny size before it stated its NPROMA: the configuration's 128
+    ({"columns_per_chip": 48}, 128),
+])
+def test_the_rehearsal_guard_refuses_a_share_that_splits_a_block(tiny,
+                                                                 nproma):
+    cfg = {**_config("dp-jube"), "layout": "nproma_blocks"}
+    with pytest.raises(ValueError, match=f"a share of 48 columns is not a "
+                       f"whole number of NPROMA blocks of {nproma};"):
+        checked_shares(cfg, tiny)
 
 
 def test_metrics_and_their_readers():
