@@ -104,9 +104,11 @@
 namespace cloudsc {
 
 // output rows: per level (OLEV_ROWS) and per half level (OHALF_ROWS) in
-// kernels/cuda_cloudsc.py
+// kernels/cuda_cloudsc.py; the five cloud tendencies OL_TCLD0..+4 (NCLV
+// order, the vapour's last and 0) are TENDENCY_LOC_CLD as `assemble`
+// returns it, a view of o_lev
 enum { OL_PLUDE, OL_PCOVPTOT, OL_TEND_T, OL_TEND_Q, OL_TEND_A, OL_TCLD0,
-       OL_COUNT = OL_TCLD0 + 4 };
+       OL_COUNT = OL_TCLD0 + 5 };
 enum { OH_PFSQLF, OH_PFSQIF, OH_PFCQLNG, OH_PFCQNNG, OH_PFSQRF, OH_PFSQSF,
        OH_PFCQRNG, OH_PFCQSNG, OH_PFPLSL, OH_PFPLSN,
 #if !CLOUDSC_FOLD_OUTPUTS
@@ -338,6 +340,7 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
 #pragma unroll
     for (int m = 0; m < 4; ++m)
       ol[(OL_TCLD0 + m) * n] = (zqxn_eff[m] - in.zqx0[m]) * zqtmst;
+    ol[(OL_TCLD0 + IV) * n] = T(0);
     ztp1_prev = in.ztp1;
     za_prev = in.za;
     pap_prev = pap;
@@ -380,7 +383,8 @@ fused_kernel(const T* __restrict__ pack, const T* __restrict__ col,
 // whatever the body reads; here a load whose value goes unused would be
 // dropped, so each level's rows (and col) are read through a volatile
 // pointer: every input byte the step's model counts is loaded once. Every
-// output row of level k gets the level's value v (o_lev only for k < nlev);
+// output row of level k gets the level's value v (o_lev only for k < nlev)
+// but the vapour's cloud tendency, 0 as the full body writes it;
 // o_prainfrac gets the value of the last level the loop visits, the
 // edge-replicated row nlev, as the TPU body leaves it.
 constexpr int DIAG_BLOCK = 128;
@@ -409,7 +413,8 @@ __device__ __forceinline__ void write_level(T* o_lev, T* o_half, int k,
   if (k == nlev) return;
   T* ol = o_lev + size_t(k) * OL_COUNT * n + j;
 #pragma unroll
-  for (int r = 0; r < OL_COUNT; ++r) ol[r * n] = v;
+  for (int r = 0; r < OL_COUNT; ++r)
+    ol[r * n] = r == OL_TCLD0 + IV ? T(0) : v;
 }
 
 template <typename T>

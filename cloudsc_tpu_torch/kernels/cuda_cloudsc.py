@@ -93,7 +93,7 @@ import torch
 
 from ..physics import satfold, scheme
 from ..physics.cloudsc import CloudscOutputs
-from ..physics.scheme import IL, II, IR, IS, NCLV
+from ..physics.scheme import IL, II, IR, IS, IV, NCLV
 from ..runtime import tracing
 
 # mode -> the body's name in the C entry points (cloudsc_<body>_<f32|f64>)
@@ -134,10 +134,12 @@ FOLD_ENV = (("fold_inputs", "CLOUDSC_FOLD_INPUTS", "1"),
 FOLDO_ENV = ("CLOUDSC_FOLD_OUTPUTS", "1")
 # per-column rows of `col`
 COL_ROWS = ("plsm", "ldcum", "ktype", "paph_surf")
-# rows of the per-level output buffer (the vapour-slot cloud tendency is
-# identically zero and synthesized in `assemble`)
+# rows of the per-level output buffer; the five cloud tendencies (the
+# vapour's, tcld4, identically zero) are TENDENCY_LOC_CLD, which `assemble`
+# returns as a view of the buffer
 OLEV_ROWS = ("plude", "pcovptot", "tend_t", "tend_q", "tend_a",
-             "tcld0", "tcld1", "tcld2", "tcld3")
+             "tcld0", "tcld1", "tcld2", "tcld3", "tcld4")
+TCLD0 = OLEV_ROWS.index("tcld0")
 # rows of the half-level flux buffer; PFSQLTUR/PFSQITUR and PFHPSL/PFHPSN
 # (FOLDO_DROP) are pure functions of streamed values and are rebuilt in
 # `assemble`, unless the build writes them after the others
@@ -877,11 +879,11 @@ def _zdqs_launch(table: list, like: torch.Tensor, c, lib) -> tuple:
 
 def cloudsc_fused(x, c, consts: torch.Tensor | None = None,
                   mode: str = "full", lib=None, fold_outputs: bool = True):
-    """One CLOUDSC step on a pack or a plain field dict -> (o_lev (nlev, 9,
-    ncol), o_half (nlev+1, 10 or 14 (`ohalf_rows(fold_outputs)`), ncol),
-    o_prainfrac (ncol,)) on its device. A `FoldedPack` on the card launches
-    the Pack policy; `mode` "floor" or "init" runs the diagnostic body
-    instead of the physics. A field dict is read in place, with no pack,
+    """One CLOUDSC step on a pack or a plain field dict -> (o_lev (nlev, 10
+    (`OLEV_ROWS`), ncol), o_half (nlev+1, 10 or 14
+    (`ohalf_rows(fold_outputs)`), ncol), o_prainfrac (ncol,)) on its
+    device. A `FoldedPack` on the card launches the Pack policy; `mode`
+    "floor" or "init" runs the diagnostic body instead of the physics. A field dict is read in place, with no pack,
     by the build of ROWS_FORM: on the card zdqs_kernel writes the dict's
     ZDQS row (`zdqs_row`), then the Rows policy (a table of the rows' base
     pointers and heights in the kernel's parameters, the ZDQS row's among
@@ -1174,7 +1176,8 @@ def cloudsc_fused_plain(x, c, fold_outputs: bool = True):
         zqx0 = ini["zqx0"]
         o_lev[k] = torch.stack(
             [plude_row, pcovptot_row, tend_t_row, tend_q_row, tend_a_row]
-            + [(zqxn_eff[m] - zqx0[m]) * zqtmst for m in (IL, II, IR, IS)])
+            + [(zqxn_eff[m] - zqx0[m]) * zqtmst for m in (IL, II, IR, IS)]
+            + [zero])
         ztp1_prev, za_prev, pap_prev = ini["ztp1"], ini["za"], raw["pap"]
 
         # section-8 increments for this level (ref: 2798-2857)
@@ -1204,9 +1207,11 @@ def cloudsc_fused_plain(x, c, fold_outputs: bool = True):
 def _diagnostic_outputs(v: torch.Tensor, nlev: int,
                         fold_outputs: bool = True):
     """A diagnostic body's three buffers from its per-level value v
-    (nlev+1, ncol): every row of level k holds v[k]; o_prainfrac holds the
-    last level's, v[nlev] (pallas_cloudsc.py:489-509)."""
+    (nlev+1, ncol): every row of level k holds v[k] but the vapour's cloud
+    tendency, 0 as the full body writes it; o_prainfrac holds the last
+    level's, v[nlev] (pallas_cloudsc.py:489-509)."""
     o_lev = v[:nlev, None].expand(-1, len(OLEV_ROWS), -1).contiguous()
+    o_lev[:, TCLD0 + IV] = 0
     o_half = v[:, None].expand(-1, len(ohalf_rows(fold_outputs)),
                                -1).contiguous()
     return o_lev, o_half, v[nlev].clone()
@@ -1342,7 +1347,9 @@ def assemble(res, src, c, fold_outputs: bool = True) -> CloudscOutputs:
     on the buffers' device. The four derivable flux rows are rebuilt from
     `src` (the step's pack or field dict, `foldo_synthesize`) where the
     build left them out (`fold_outputs`), and read from the buffer where it
-    wrote them."""
+    wrote them. Every output is a view of the buffers, TENDENCY_LOC_CLD
+    too: K1's five cloud-tendency rows, `(NCLV, nlev, ncol)` with strides
+    `(ncol, len(OLEV_ROWS) * ncol, 1)`."""
     with tracing.span("cloudsc.assemble"):
         o_lev, o_half, o_prainfrac = res
         lev = {name: o_lev[:, j] for j, name in enumerate(OLEV_ROWS)}
@@ -1351,9 +1358,7 @@ def assemble(res, src, c, fold_outputs: bool = True) -> CloudscOutputs:
         if fold_outputs:
             with tracing.span("cloudsc.foldo"):
                 foldo_synthesize(half, src, c)
-        tcld = torch.stack([lev[f"tcld{m}"] for m in range(4)]
-                           + [torch.zeros_like(lev["tcld0"])])
-        tracing.count("ops.assemble", 2)
+        tcld = o_lev[:, TCLD0:TCLD0 + NCLV].transpose(0, 1)
         FEED.issued(o_lev.device)
         return CloudscOutputs(
             plude=lev["plude"], pcovptot=lev["pcovptot"],

@@ -140,8 +140,10 @@ def split_columns(ncol: int, n: int) -> list[tuple[int, int]]:
 def error_norms(field: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """(min, max, maxabserr, errsum, refsum) of one field against its
     reference, formed in fp64 where the tensors lie (`dist.py:237-255`'s
-    `error_norms` without the mesh reduction)."""
-    f, r = field.double(), ref.double()
+    `error_norms` without the mesh reduction). The field is made
+    contiguous first, so the sums run in its canonical order whatever view
+    it is (TENDENCY_LOC_CLD is a strided view of K1's level buffer)."""
+    f, r = field.double().contiguous(), ref.double()
     d = (f - r).abs()
     return torch.stack([f.min(), f.max(), d.max(), d.sum(), r.abs().sum()])
 

@@ -31,7 +31,7 @@ using T = double;
 #endif
 
 enum { OL_PLUDE, OL_PCOVPTOT, OL_TEND_T, OL_TEND_Q, OL_TEND_A, OL_TCLD0,
-       OL_COUNT = OL_TCLD0 + 4 };
+       OL_COUNT = OL_TCLD0 + 5 };
 enum { OH_PFSQLF, OH_PFSQIF, OH_PFCQLNG, OH_PFCQNNG, OH_PFSQRF, OH_PFSQSF,
        OH_PFCQRNG, OH_PFCQSNG, OH_PFPLSL, OH_PFPLSN,
 #if !CLOUDSC_FOLD_OUTPUTS
@@ -130,6 +130,7 @@ static void column(const T* pack, const T* col, const T* K, T* o_lev,
     ol[OL_TEND_A * n] = tend_a_row;
     for (int m = 0; m < 4; ++m)
       ol[(OL_TCLD0 + m) * n] = (zqxn_eff[m] - in.zqx0[m]) * zqtmst;
+    ol[(OL_TCLD0 + IV) * n] = T(0);
     ztp1_prev = in.ztp1;
     za_prev = in.za;
     pap_prev = pap;

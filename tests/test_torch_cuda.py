@@ -720,9 +720,10 @@ def test_foldo_kernel_bitwise_equals_plain(cuda, ncol, kind, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_step_device_ops_on_the_card(cuda, dtype):
     """The resident step on the card (a field dict read in place by K1,
-    then `assemble`) issues 5 device operations: the K1 layer's 2
-    (zdqs_kernel's ZDQS row, then K1) and `assemble`'s 3 (the flux rows'
-    one launch, the cloud tendencies' zeros and stack), and no pack;
+    then `assemble`) issues 3 device operations: the K1 layer's 2
+    (zdqs_kernel's ZDQS row, then K1) and `assemble`'s 1 (the flux rows'
+    one launch; the cloud tendencies are a view of K1's buffer), and no
+    pack;
     `launches.foldo` and `launches.zdqs` count one launch a step and
     `launches.k1.in_place` every K1 launch."""
     from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
@@ -737,11 +738,49 @@ def test_step_device_ops_on_the_card(cuda, dtype):
         cc.assemble(step(fields), fields, step.c)
     torch.cuda.synchronize()
     assert [tracing.counter(n) for n in ("ops.pack", "ops.k1",
-                                         "ops.assemble")] == [0, 4, 6]
+                                         "ops.assemble")] == [0, 4, 2]
     assert tracing.counter("launches.foldo") == 2
     assert tracing.counter("launches.zdqs") == 2
     assert tracing.counter("launches.k1.in_place") == 2
     assert tracing.counter("pack_bytes") == 0
+
+
+@pytest.mark.parametrize("fold_outputs", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_step_writes_the_vapour_plane(cuda, dtype, fold_outputs):
+    """K1 writes the vapour species' cloud-tendency row itself: with the
+    block that the step's level buffer takes from the caching allocator
+    filled with NaN beforehand, a step on a field dict gives a vapour
+    plane of +0 and all 21 outputs bit for bit the plain version's on the
+    same dict, TENDENCY_LOC_CLD a view of that buffer."""
+    from cloudsc_tpu_torch.physics.cloudsc import fields_on_device
+
+    inp = tdata.load_input(tdata.default_input_path(), NCOL)
+    params = Params.from_input(inp)
+    fields = fields_on_device(inp, dtype, cuda)
+    step = cc.FusedStep(params, inp.ptsphy, dtype,
+                        fold_outputs=fold_outputs).to(cuda)
+    step(fields)  # builds; its blocks go back to the allocator
+    torch.cuda.synchronize()
+    # the step's requests in its order: the ZDQS row, then the level
+    # buffer, which the NaN block's freed place serves next
+    nlev, ncol = fields["pt"].shape
+    zdqs = torch.empty_like(fields["pt"])
+    poison = torch.full((nlev, len(cc.OLEV_ROWS), ncol), float("nan"),
+                        dtype=dtype, device=cuda)
+    ptr = poison.data_ptr()
+    del poison, zdqs
+    res = step(fields)
+    assert res[0].data_ptr() == ptr
+    got = cc.assemble(res, fields, step.c, fold_outputs)
+    assert got.tendency_loc_cld.data_ptr() == \
+        ptr + cc.TCLD0 * ncol * res[0].element_size()
+    want = cc.assemble(cc.cloudsc_fused_plain(fields, step.c, fold_outputs),
+                       fields, step.c, fold_outputs)
+    torch.cuda.synchronize()
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    assert not got.tendency_loc_cld[tscheme.IV].view(ints).any()
+    _outputs_bitwise(got, want)
 
 
 def _in_place_case(case, dtype, cuda, ncol=16387):

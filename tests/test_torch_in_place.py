@@ -25,7 +25,11 @@ card (`tests/test_torch_cuda.py`).
   * `zdqs_plain` is the in-line chain of `scheme.level_step` bit for bit
     on every level it runs, its last level masks the PMF of the level
     below, and the levels above the cloud top, which K1 never reads, are
-    0.
+    0;
+  * the step's TENDENCY_LOC_CLD is a view of K1's level buffer, its
+    vapour plane exactly 0, bit for bit the four cloud species' rows
+    stacked with a zero plane, in both precisions, with and without the
+    folded-out flux rows.
 """
 
 import pytest
@@ -193,6 +197,36 @@ def test_cpu_step_packs_and_reads_nothing_in_place(precision, case, ncol):
     for a, b in zip(got, want):
         assert bool(torch.isfinite(a).all())
         assert torch.equal(a.view(ints), b.view(ints))
+
+
+@pytest.mark.parametrize("fold_outputs", [True, False])
+@pytest.mark.parametrize("precision", ["fp32", "fp64"])
+def test_cloud_tendencies_are_a_view_of_the_level_buffer(precision,
+                                                         fold_outputs):
+    """`assemble` returns TENDENCY_LOC_CLD as a view of the step's level
+    buffer: `(NCLV, nlev, ncol)` over the same storage, the species'
+    rows `len(OLEV_ROWS)` rows apart a level; its vapour plane is +0
+    everywhere (K1 writes it), and it is bit for bit what `assemble`
+    used to stack: the four cloud species' rows and a plane of zeros."""
+    dtype = DTYPES[precision]
+    inp, params, config, c, fields = _case("reference", dtype, ncol=37)
+    step = cc.FusedStep(params, inp.ptsphy, dtype, config,
+                        fold_outputs=fold_outputs)
+    res = step(fields)
+    o_lev = res[0]
+    nlev, ncol = inp.klev, 37
+    tcld = cc.assemble(res, fields, step.c, fold_outputs).tendency_loc_cld
+    assert tcld.shape == (tscheme.NCLV, nlev, ncol)
+    assert tcld.stride() == (ncol, len(cc.OLEV_ROWS) * ncol, 1)
+    assert tcld.untyped_storage().data_ptr() == \
+        o_lev.untyped_storage().data_ptr()
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    assert not tcld[tscheme.IV].view(ints).any()
+    lev = {name: o_lev[:, j] for j, name in enumerate(cc.OLEV_ROWS)}
+    old = torch.stack([lev[f"tcld{m}"] for m in range(4)]
+                      + [torch.zeros_like(lev["tcld0"])])
+    assert bool(torch.isfinite(tcld).all())
+    assert torch.equal(tcld.view(ints), old.view(ints))
 
 
 @pytest.mark.parametrize("mangled,key", [

@@ -313,13 +313,14 @@ def test_pack_inputs_fold_matches_jax(params, dtype, every_form,
 
 
 def test_k1_bytes_and_ring_of_the_unfolded_pack(params):
-    """27 input rows against 19: the modeled bytes and the ring's shared
+    """27 input rows against 19: the modeled bytes (10 level rows out,
+    the vapour's zero cloud tendency among them) and the ring's shared
     memory (4 stages x 27 rows x 128 threads)."""
     inp = _inp(100)
     p = _unfolded(inp, params, torch.float32)
     nlev, n = inp.klev, 100
     assert cc.k1_bytes(p) == 4 * ((nlev + 1) * 27 * n + 4 * n
-                                  + nlev * 9 * n + (nlev + 1) * 10 * n + n)
+                                  + nlev * 10 * n + (nlev + 1) * 10 * n + n)
     assert cc.k1_bytes(p, False) == cc.k1_bytes(p) + 4 * (nlev + 1) * 4 * n
     assert cc.RING.smem_bytes(8, len(p.rows)) == 110592
     assert cc.RING.smem_bytes(4, len(p.rows)) == 55296
